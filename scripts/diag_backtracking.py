@@ -1,12 +1,9 @@
-"""Where the headline bench's backtracking phase goes (round-5 diagnostic).
+"""Where the headline configuration's line search spends its rounds.
 
-With the blocked kernels the backward phase fell 14.0 -> 6.7 s and the
-optimistic phase 11.4 -> 9.7, leaving backtracking (15.7-17.2 s over 20
-iterations at B=512) as the largest phase. This reruns the headline
-configuration and prints the search accounting run() already collects:
-per-iteration straggler-bucket rounds, the ls_trials distribution, and
-the phase timers — to show whether the tail is many rounds, large
-buckets, or a few very hard members.
+Reruns bench.py's headline configuration and prints, as JSON, the search
+accounting run() already collects: straggler-bucket rounds, the ls_trials
+distribution, and the phase timers — to show whether the backtracking tail
+is many rounds, large buckets, or a few very hard members.
 
     python scripts/diag_backtracking.py [--b 512] [--iters 20]
 """
@@ -20,10 +17,6 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(REPO, ".jax_cache"))
-
-import numpy as np
 
 
 def main():
@@ -32,27 +25,15 @@ def main():
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
 
-    import dataclasses
-    import jax
-    import jax.numpy as jnp
-    from vch_tpu.config import ForwardSolverConfig2D
-    from vch_tpu.parallel.batch import BatchedProblem2D, sweep_2d
+    from bench import headline_config, headline_sweep, stage
+    from vch_tpu.parallel.batch import BatchedProblem2D
+    from vch_tpu.runtime import setup_compile_cache
+    setup_compile_cache()
 
     B, iters = args.b, args.iters
-    cfg = ForwardSolverConfig2D(Nx=64, Ny=64, T=1.0, dtype="float32",
-                                newton_tol=2e-4,
-                                forward_matmul_precision="high")
+    cfg = headline_config(64, "float32")
     prob = BatchedProblem2D(cfg)
-    b3s = np.linspace(5e-5, 2e-4, max(1, B // 4))
-    kss = np.linspace(5e-5, 2e-4, 4)
-    sc = sweep_2d(cfg, b3_values=b3s, kappa_values=kss)
-    reps = -(-B // sc.batch)
-    tile = lambda a: np.concatenate([a] * reps, axis=0)[:B]
-    st = lambda a: jax.device_put(jnp.asarray(a, jnp.float32))
-    sc = dataclasses.replace(
-        sc, phi0=st(tile(sc.phi0)), phi_T=st(tile(sc.phi_T)),
-        phi_Q=st(tile(sc.phi_Q)), b1=st(tile(sc.b1)), b2=st(tile(sc.b2)),
-        b3=st(tile(sc.b3)), kappa_spar=st(tile(sc.kappa_spar)))
+    sc = stage(headline_sweep(cfg, B), "float32")
 
     prob.run(sc, max_iter=1, verbose=False)
     prob.prewarm(sc)
@@ -72,11 +53,6 @@ def main():
         "mean_trials_per_member_per_iter": round(float(lt.mean()) / iters, 3),
     }
     print(json.dumps(res, indent=1))
-    path = os.path.join(REPO, "BENCH_RESULTS.json")
-    data = json.load(open(path)) if os.path.exists(path) else {}
-    data["backtracking_diag_r5"] = res
-    json.dump(data, open(path, "w"), indent=1)
-    open(path, "a").write("\n")
 
 
 if __name__ == "__main__":

@@ -1,11 +1,13 @@
 """Diagnostic: per-iteration line-search trial counts at the headline config.
 
-Mirrors bench.py defaults exactly (same shapes -> same cached compiles) but
+Mirrors bench.py's defaults (same shapes, so the same cached compiles) but
 runs verbose and longer to expose where backtracking rounds are spent.
+
+    VCH_BENCH_N=64 VCH_BENCH_BATCH=32 VCH_BENCH_ITERS=6 \\
+        python scripts/diag_trials.py
 """
 from __future__ import annotations
 
-import dataclasses
 import os
 import sys
 import time
@@ -16,39 +18,19 @@ import numpy as np
 
 
 def main():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          os.path.join(os.path.dirname(os.path.dirname(
-                              os.path.abspath(__file__))), ".jax_cache"))
-    import jax
-    import jax.numpy as jnp
+    from bench import headline_config, headline_sweep, stage
+    from vch_tpu.parallel.batch import BatchedProblem2D
+    from vch_tpu.runtime import setup_compile_cache
+    setup_compile_cache()
 
     N = int(os.environ.get("VCH_BENCH_N", "64"))
     B = int(os.environ.get("VCH_BENCH_BATCH", "32"))
     iters = int(os.environ.get("VCH_BENCH_ITERS", "6"))
     alpha0 = os.environ.get("VCH_ALPHA0")
 
-    from vch_tpu.config import ForwardSolverConfig2D
-    from vch_tpu.parallel.batch import BatchedProblem2D, sweep_2d
-
-    cfg = ForwardSolverConfig2D(
-        Nx=N, Ny=N, T=1.0, dtype="float32", newton_tol=2e-4,
-        forward_matmul_precision="high")
+    cfg = headline_config(N, "float32")
     prob = BatchedProblem2D(cfg)
-    b3s = np.linspace(5e-5, 2e-4, max(1, B // 4))
-    kss = np.linspace(5e-5, 2e-4, 4)[: max(1, min(4, B))]
-    sc = sweep_2d(cfg, b3_values=b3s, kappa_values=kss)
-    reps = -(-B // sc.batch)
-    tile = lambda a: np.concatenate([a] * reps, axis=0)[:B]
-    sc = dataclasses.replace(
-        sc, phi0=tile(sc.phi0), phi_T=tile(sc.phi_T), phi_Q=tile(sc.phi_Q),
-        b1=tile(sc.b1), b2=tile(sc.b2), b3=tile(sc.b3),
-        kappa_spar=tile(sc.kappa_spar))
-    stage = lambda a: jax.device_put(jnp.asarray(a, jnp.float32))
-    sc = dataclasses.replace(
-        sc, phi0=stage(sc.phi0), phi_T=stage(sc.phi_T), phi_Q=stage(sc.phi_Q),
-        b1=stage(sc.b1), b2=stage(sc.b2), b3=stage(sc.b3),
-        kappa_spar=stage(sc.kappa_spar))
-
+    sc = stage(headline_sweep(cfg, B), "float32")
     if alpha0:
         prob.alpha_max = float(alpha0)  # initial alpha only; growth still capped below
     prob.run(sc, max_iter=1, verbose=False)  # warmup

@@ -2,12 +2,11 @@
 
 The reference driver always finishes with the Theorem-4.7 sparsity check and
 the critical-cone second-order probe (GD2_configured.py:384-441, 5 directions
-at epsilon=1e-4 seed=42, second_order_conditions_2d.py:120-236); round 3
-recorded the converged 2D costs only (VERDICT round-3 missing #4). This runs
-the convergence_2d_n32_T0.25 setup through BOTH pipelines — ours
+at epsilon=1e-4 seed=42, second_order_conditions_2d.py:120-236). This runs
+the converged 32x32, T=0.25 setup through BOTH pipelines — ours
 (ControlProblem2D.verify_sparsity / second_order_check) and the reference's
-own functions executed from /root/reference — and records the side-by-side
-match in BENCH_RESULTS.json under "kkt_coercivity_2d".
+own functions, imported from the reference tree (REF below) — and prints
+the side-by-side match as JSON.
 
     MPLBACKEND=Agg python scripts/kkt_coercivity_2d.py [N] [T] [max_iters]
 """
@@ -165,12 +164,6 @@ def main():
                     "(second_order_conditions_2d.py verify_sparsity_"
                     "condition)",
     }
-    path = os.path.join(REPO, "BENCH_RESULTS.json")
-    data = json.load(open(path)) if os.path.exists(path) else {}
-    data["kkt_coercivity_2d"] = entry
-    with open(path, "w") as f:
-        json.dump(data, f, indent=1)
-        f.write("\n")
     print(json.dumps(entry, indent=1))
 
 

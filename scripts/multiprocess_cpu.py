@@ -1,4 +1,4 @@
-"""Multi-PROCESS distributed batched PGD on CPU (VERDICT round-4 #4).
+"""Multi-PROCESS distributed batched PGD on CPU.
 
 Two `jax.distributed` processes on this host (Gloo collectives, coordinator
 on localhost), each owning 2 virtual CPU devices -> a 4-device global
@@ -24,7 +24,7 @@ f64 after 3 chaotic PGD iterations).
     python scripts/multiprocess_cpu.py            # parent: runs everything
     python scripts/multiprocess_cpu.py --rank N   # internal (spawned)
 
-Writes BENCH_RESULTS.json key "multiprocess_cpu". Reference anchor: the
+Prints the comparison as JSON. Reference anchor: the
 reference is single-process NumPy (SURVEY.md section 2.3); this is the
 BASELINE.md >= 2-host north-star path exercised at CPU scale.
 """
@@ -202,11 +202,6 @@ def main():
                 "allgathered via _host_read. "
                 + time.strftime("%Y-%m-%d"),
     }
-    path = os.path.join(REPO, "BENCH_RESULTS.json")
-    data = json.load(open(path)) if os.path.exists(path) else {}
-    data["multiprocess_cpu"] = entry
-    json.dump(data, open(path, "w"), indent=1)
-    open(path, "a").write("\n")
     print(json.dumps(entry, indent=1))
 
 

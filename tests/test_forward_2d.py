@@ -136,7 +136,8 @@ def test_energy_history_api(solver):
 
 def test_forward_matmul_precision_knob():
     """The forward-precision override produces the same result on CPU
-    (precision only affects TPU lowering) — covers the code path."""
+    (precision only changes an accelerator's lowering) — covers the code
+    path."""
     cfg = ForwardSolverConfig2D(Nx=16, Ny=16, T=0.05,
                                 forward_matmul_precision="high")
     s = ForwardSolver2D(cfg)
@@ -150,11 +151,9 @@ def test_forward_matmul_precision_knob():
 def test_krylov_trips_invariance_f32():
     """The forward fixed Krylov trip count (f32 path) must not change the
     computed trajectory: the Newton while_loop's residual tolerance gates
-    quality, so extra trips are pure waste. Locks the on-chip tuning that
-    set the default to 4 (trips 4-10 measured identical Newton totals and
-    final costs at 64x64 B=32; BENCH_RESULTS.json
-    krylov_trips_tuning_64x64_b32). No reference analog (the reference
-    uses a direct sparse LU, Forward2_solver.py:370)."""
+    quality, so extra trips are pure waste. Locks the default of 4. No
+    reference analog (the reference uses a direct sparse LU,
+    Forward2_solver.py:370)."""
     outs = {}
     for trips in (4, 12):
         cfg = ForwardSolverConfig2D(Nx=16, Ny=16, T=0.2, dtype="float32",
@@ -177,7 +176,7 @@ def test_symmetry_preservation_2d():
     monkeypatches init_phi_random to a tiled cosine and asserts fliplr
     symmetry; we pass initial_phi directly and use a cos*cos profile so
     both the x- and y-mirror checks are non-trivial — this exercises the
-    transform/stencil symmetry the Pallas kernels re-implement)."""
+    transform/stencil symmetry)."""
     N = 32
     cfg = ForwardSolverConfig2D(Nx=N, Ny=N, T=0.1)
     s = ForwardSolver2D(cfg)

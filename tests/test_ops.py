@@ -2,7 +2,7 @@
 
 Mirrors the reference's operator checks (test_1d_forward.py:161-183 cosine
 eigenfunction; test_2d_Cost.py:120-134 Neumann nullspace) and adds exactness
-tests for the TPU-native spectral machinery that has no reference analog.
+tests for the spectral machinery that has no reference analog.
 """
 import numpy as np
 import jax.numpy as jnp

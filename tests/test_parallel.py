@@ -156,7 +156,7 @@ def test_batched_metrics_jsonl_and_advisor(tmp_path):
 
 def test_batched_2d_mesh_straggler_bucketing_matches_full():
     """Per-DEVICE straggler compaction under the scenario mesh (shard-local
-    gather/scatter inside shard_map, VERDICT round-3 weak #2) reproduces the
+    gather/scatter inside shard_map) reproduces the
     full-batch masked-merge mesh run exactly, with fewer Newton solves.
     Each device buckets its own stragglers by LOCAL index — no collectives."""
     from vch_tpu.parallel.mesh import make_mesh
@@ -248,9 +248,7 @@ def test_batched_speculative_matches_sequential(dim):
 def test_batched_2d_chunked_matches_full():
     """Chunked execution (chunk_size members per device call) is pure
     orchestration: identical outputs to the single-program run. It exists
-    to bound the vmapped while_loop lockstep cost at large B (measured
-    on-chip: B=64 in one program runs at 0.4x the per-member rate of
-    B=32; two chunked B=32 calls keep the peak rate)."""
+    to bound the vmapped while_loop lockstep cost at large B."""
     cfg = ForwardSolverConfig2D(Nx=16, Ny=16, T=0.15)
     mk = lambda: sweep_2d(cfg, b3_values=[5e-5, 1e-4, 2e-4],
                           kappa_values=[5e-5, 2e-4])
@@ -271,76 +269,6 @@ def test_batched_2d_chunked_matches_full():
     assert out_chunk["newton_solves"] == out_full["newton_solves"]
 
 
-def test_batched_2d_fused_sharded_matches_unsharded():
-    """Fused whole-march + whole-adjoint Pallas kernels under the scenario
-    mesh (shard_fused / shard_map): each of the 8 virtual devices runs its
-    own (B_local, M)-grid kernel on its batch shard, and the result must
-    match the unsharded fused run member-for-member (VERDICT round-2 #1:
-    the fast path must BE the multi-chip path)."""
-    cfg = ForwardSolverConfig2D(Nx=16, Ny=16, T=0.06, dtype="float32",
-                                newton_tol=2e-4,
-                                fused_krylov_fixed_iters=4,
-                                fused_solve_precision="highest")
-    mk = lambda: sweep_2d(cfg, b3_values=[1e-4, 2e-4, 3e-4, 4e-4],
-                          kappa_values=[1e-5, 1e-4])
-    plain = BatchedProblem2D(cfg, fused_march=True)
-    assert plain._use_fused_march and plain._fused_adjoint is not None
-    out_plain = plain.run(mk(), max_iter=2, verbose=False)
-    sharded = BatchedProblem2D(cfg, mesh=make_mesh(), fused_march=True)
-    assert sharded._use_fused_march and sharded._fused_adjoint is not None
-    out_mesh = sharded.run(mk(), max_iter=2, verbose=False)
-    # per-member kernel arithmetic is identical; the f32 noise comes from
-    # XLA reducing the vmapped prox/cost programs differently at batch
-    # shape 8 vs the per-shard shape 1
-    np.testing.assert_allclose(out_mesh["cost_history"],
-                               out_plain["cost_history"], rtol=1e-5)
-    np.testing.assert_allclose(out_mesh["u"], out_plain["u"], rtol=0,
-                               atol=1e-4)
-    np.testing.assert_array_equal(out_mesh["ls_trials"],
-                                  out_plain["ls_trials"])
-
-
-def test_batched_1d_fused_sharded_matches_unsharded():
-    """1D fused whole-march kernel under the scenario mesh: per-device
-    (time)-grid kernels on (B_local, n) blocks reproduce the unsharded
-    fused run. The 1D kernel's matmuls contract over the LOCAL batch
-    axis, so shape-dependent CPU reduction blocking can flip a member's
-    f32 Newton exit by one iteration (~newton_tol=2e-4 state change);
-    tolerances sized to that, costs still agree to 1e-5."""
-    cfg = ForwardSolverConfig1D(N=64, T=0.2, dtype="float32",
-                                newton_tol=2e-4, linsolve_1d="spectral")
-    mk = lambda: sweep_1d(cfg, OptimizationConfig(),
-                          b3_values=[1e-3, 2e-3, 3e-3, 4e-3],
-                          kappa_values=[1e-5, 1e-4])
-    plain = BatchedProblem1D(cfg, fused_march=True)
-    assert plain._use_fused_march
-    out_plain = plain.run(mk(), max_iter=2, verbose=False)
-    sharded = BatchedProblem1D(cfg, mesh=make_mesh(), fused_march=True)
-    out_mesh = sharded.run(mk(), max_iter=2, verbose=False)
-    np.testing.assert_allclose(out_mesh["cost_history"],
-                               out_plain["cost_history"], rtol=1e-5)
-    np.testing.assert_allclose(out_mesh["u"], out_plain["u"], rtol=0,
-                               atol=1e-3)
-
-
-def test_shard_fused_falls_back_when_batch_indivisible():
-    """A batch that does not divide the mesh runs the plain single-program
-    fused call (run() leaves such batches unsharded), bit-for-bit equal to
-    the no-mesh problem."""
-    cfg = ForwardSolverConfig2D(Nx=16, Ny=16, T=0.06, dtype="float32",
-                                newton_tol=2e-4,
-                                fused_krylov_fixed_iters=4,
-                                fused_solve_precision="highest")
-    mk = lambda: sweep_2d(cfg, b3_values=[1e-4, 2e-4, 3e-4],
-                          kappa_values=[1e-4])          # B=3, mesh=8
-    out_plain = BatchedProblem2D(cfg, fused_march=True).run(
-        mk(), max_iter=1, verbose=False)
-    out_mesh = BatchedProblem2D(cfg, mesh=make_mesh(), fused_march=True).run(
-        mk(), max_iter=1, verbose=False)
-    np.testing.assert_allclose(out_mesh["cost_history"],
-                               out_plain["cost_history"], rtol=1e-6)
-
-
 @pytest.mark.skipif(os.environ.get("VCH_RUN_MULTIPROCESS") != "1",
                     reason="spawns 2 jax.distributed subprocesses (Gloo); "
                            "opt in with VCH_RUN_MULTIPROCESS=1 (the script "
@@ -349,8 +277,7 @@ def test_shard_fused_falls_back_when_batch_indivisible():
 def test_multiprocess_distributed_matches_single_process():
     """Two real jax.distributed CPU processes, global scenario batch from
     process-local shards, 3 batched PGD iterations — costs must match the
-    single-process run to f64 roundoff (scripts/multiprocess_cpu.py,
-    recorded as BENCH_RESULTS `multiprocess_cpu`)."""
+    single-process run to f64 roundoff (scripts/multiprocess_cpu.py)."""
     import subprocess
     import sys
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -358,28 +285,3 @@ def test_multiprocess_distributed_matches_single_process():
         [sys.executable, os.path.join(repo, "scripts", "multiprocess_cpu.py")],
         timeout=1500, env={**os.environ, "JAX_PLATFORMS": ""}).returncode
     assert rc == 0
-
-
-def test_batched_2d_blocked_fused_sharded_matches_unsharded():
-    """BLOCKED fused kernels under the scenario mesh: with a 2-device mesh
-    and B=8 (4 members per device, divisible by fused_march_block=4) each
-    device runs the member-block-tiled (B_local/Bb, M)-grid kernels inside
-    shard_map — the composition the production bench runs multi-chip. Must
-    match the unsharded blocked run member-for-member."""
-    from vch_tpu.parallel.mesh import make_mesh as _mk_mesh
-    cfg = ForwardSolverConfig2D(Nx=16, Ny=16, T=0.05, dtype="float32",
-                                newton_tol=2e-4,
-                                fused_krylov_fixed_iters=4,
-                                fused_solve_precision="highest",
-                                fused_march_block=4)
-    mk = lambda: sweep_2d(cfg, b3_values=[1e-4, 2e-4, 3e-4, 4e-4],
-                          kappa_values=[1e-5, 1e-4])
-    plain = BatchedProblem2D(cfg, fused_march=True)
-    out_plain = plain.run(mk(), max_iter=2, verbose=False)
-    sharded = BatchedProblem2D(cfg, mesh=_mk_mesh(n_devices=2),
-                               fused_march=True)
-    out_mesh = sharded.run(mk(), max_iter=2, verbose=False)
-    np.testing.assert_allclose(out_mesh["cost_history"],
-                               out_plain["cost_history"], rtol=1e-5)
-    np.testing.assert_array_equal(out_mesh["ls_trials"],
-                                  out_plain["ls_trials"])

@@ -25,7 +25,7 @@ def test_pgd_2d_full_convergence_matches_reference():
     T=0.25 config the REFERENCE (GD2_configured.py schedule, run by
     scripts/ref_convergence_2d.py) converges at iteration 26 with final
     cost 0.7492927900695695; ours matched to 8.6e-15 relative
-    (BENCH_RESULTS.json convergence_2d_n32_T0.25). Gate at 1e-6 rel so an
+    (scripts/ref_convergence_2d.py 32 0.25). Gate at 1e-6 rel so an
     algorithmic regression trips long before the 1e-4 BASELINE.md
     acceptance."""
     REF_FINAL_COST = 0.7492927900695695   # measured from the reference run

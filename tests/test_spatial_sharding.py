@@ -46,7 +46,7 @@ def test_instability_report_matches_test_formula():
 def test_grid_sharded_forward_matches_unsharded():
     """The FULL grid-sharded marcher (Newton + Armijo + mass correction
     under shard_map) must reproduce the single-device ForwardSolver2D
-    trajectory (VERDICT round-1 item 5 gate)."""
+    trajectory."""
     import jax
 
     from vch_tpu.config import ForwardSolverConfig2D
@@ -105,7 +105,7 @@ def test_grid_sharded_forward_counters_and_sanitizer():
 
 def test_grid_sharded_adjoint_matches_unsharded():
     """Grid-sharded (p, q, r) backward sweep == AdjointSolver2D on a real
-    forward trajectory (VERDICT round-2 missing #2 gate)."""
+    forward trajectory."""
     import jax
     from jax.sharding import Mesh
 
@@ -157,7 +157,7 @@ def _diversified_sweep_2d(cfg, B, seed0=50):
 
 def test_batched_grid_sharded_forward_adjoint_parity():
     """Batched grid-sharded march + adjoint on the combined (scenarios, gx)
-    mesh == per-member single-device solvers (VERDICT round-3 missing #1).
+    mesh == per-member single-device solvers.
     The mesh-lockstep loop predicates (globally OR'd conds with frozen
     members) must leave member results bit-level identical."""
     import jax
@@ -235,7 +235,7 @@ def test_batched_grid_sharded_checkpoint_resume(tmp_path):
 
 def test_make_batched_problem_combined_mesh_arm():
     """make_batched_problem_2d routes a mesh that carries a 'gx' axis to
-    the combined-mesh batched problem (VERDICT round-3 next #1 chooser)."""
+    the combined-mesh batched problem."""
     import jax
     from jax.sharding import Mesh
 
@@ -256,8 +256,7 @@ def test_make_batched_problem_combined_mesh_arm():
 def test_batched_grid_sharded_pgd_matches_unsharded_batched():
     """Full batched PGD on the combined (4 scenarios x 2 gx) mesh ==
     BatchedProblem2D (single-device vmapped scan) member-for-member:
-    cost histories, controls, and measured Newton counts (VERDICT round-3
-    missing #1 done-criterion)."""
+    cost histories, controls, and measured Newton counts."""
     import jax
     from jax.sharding import Mesh
 
@@ -289,7 +288,7 @@ def test_grid_sharded_pgd_matches_unsharded():
     ControlProblem2D trajectory over SIX iterations that exercise the whole
     search machinery under the mesh: at least one backtracking episode
     (n_trials > 1) and at least one plateau boost both occur and match the
-    reference loop decision-for-decision (VERDICT round-3 weak #1)."""
+    reference loop decision-for-decision."""
     import dataclasses
 
     import jax
@@ -303,8 +302,8 @@ def test_grid_sharded_pgd_matches_unsharded():
     # alpha_max far above the accept range forces a backtracking episode;
     # a tight plateau window (2 iters at 1e-2) forces plateau boosts within
     # the 6-iteration budget. Identical settings on both loops.
-    opt = OptimizationConfig.defaults_2d().model_copy(
-        update=dict(alpha_max=400.0))
+    opt = dataclasses.replace(OptimizationConfig.defaults_2d(),
+                              alpha_max=400.0)
     tweak = dict(plateau_length=2, plateau_tolerance=1e-2)
 
     ref = ControlProblem2D(cfg, opt_config=opt)

@@ -2,8 +2,7 @@
 
 The marchers return MarchStats (measured Newton-solve counts + first
 non-finite step); the batched runner aggregates them into the honest
-Newton-solves/s counter (VERDICT round-1 weak #2/#8; ref sanitizer:
-Forward_solver.py:166-172)."""
+Newton-solves/s counter (ref sanitizer: Forward_solver.py:166-172)."""
 import numpy as np
 import jax.numpy as jnp
 import pytest

@@ -1,6 +1,6 @@
-"""vch_tpu — TPU-native sparse optimal control of the viscous Cahn–Hilliard system.
+"""vch_tpu — sparse optimal control of the viscous Cahn–Hilliard system in JAX.
 
-A brand-new JAX/XLA/Pallas engine (not a port) with the capabilities of the
+A brand-new JAX/XLA engine (not a port) with the capabilities of the
 reference NumPy/SciPy code `Sparse-optimal-control-of-Viscous-Chan-hilliard-
 via-Gradient-descent--1D-2D`:
 
@@ -8,7 +8,7 @@ via-Gradient-descent--1D-2D`:
   Newton–Raphson on the coupled (phi, mu) system (ref: Forward_solver.py,
   Forward2_solver.py), re-architected as a `lax.scan` time marcher whose Newton
   linear solve is a Schur-complement system — dense batched solve in 1D,
-  DCT-preconditioned matrix-free Krylov (pure MXU matmuls) in 2D.
+  DCT-preconditioned matrix-free Krylov (pure matmuls) in 2D.
 - Adjoint (p, q, r) backward sweep (ref: backward_solver.py,
   backward2_solver.py) as a reverse `lax.scan` over the stored trajectory.
 - Proximal-gradient (ISTA) outer loop with soft-thresholding, box projection,
@@ -16,7 +16,7 @@ via-Gradient-descent--1D-2D`:
   (ref: GD_1D.py, GD2_configured.py).
 - KKT sparsity verification and second-order coercivity probes
   (ref: second_order_conditions*.py).
-- Scenario batching via vmap and multi-chip sharding via `jax.sharding.Mesh`
+- Scenario batching via vmap and multi-device sharding via `jax.sharding.Mesh`
   + NamedSharding (new capability; the reference is single-process CPU).
 
 Layout:
@@ -30,12 +30,12 @@ Layout:
 
 __version__ = "0.1.0"
 
-# TPU matmuls default to bfloat16 precision for float32 inputs; the cosine
-# eigenbasis transforms and Laplacian applies at the heart of every solve
-# are condition-sensitive (the adjoint operator reaches condition ~1e6) and
-# bf16 passes destroyed the float32 adjoint on-chip (NaN) while the same
-# code was exact on CPU. Scientific solves need true f32 accumulation;
-# override via VCH_MATMUL_PRECISION=default for experiments.
+# On the GPU, float32 matmuls at JAX's default precision may run in TF32,
+# which keeps about three decimal digits; the cosine eigenbasis transforms
+# and Laplacian applies at the heart of every solve are condition-sensitive
+# (the adjoint operator reaches condition ~1e6), so the package asks for
+# "highest", which keeps float32 products out of TF32 (float64 never uses
+# it). Override via VCH_MATMUL_PRECISION for experiments.
 import os as _os
 
 import jax as _jax

@@ -15,6 +15,7 @@ match the reference's output set.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 
 import numpy as np
@@ -24,7 +25,8 @@ def _add_common(p):
     p.add_argument("--interactive", action="store_true",
                    help="prompt for every config field (reference behavior)")
     p.add_argument("--dtype", default=None, choices=["float32", "float64"],
-                   help="solver dtype (default: float64 on CPU, float32 on TPU)")
+                   help="solver dtype (default: float64 on the CPU, float32 on "
+                        "an accelerator)")
     p.add_argument("--max-iter", type=int, default=None)
     p.add_argument("--target", type=int, default=1,
                    help="phi_T choice (1d: 1=sin,2=cos,3=tan; 2d: 1=sin,2=circle)")
@@ -41,8 +43,8 @@ def _add_common(p):
 def _pick_dtype(args):
     if args.dtype:
         return args.dtype
-    import jax
-    return "float32" if jax.default_backend() != "cpu" else "float64"
+    from vch_tpu.runtime import default_dtype
+    return default_dtype()
 
 
 def _maybe_x64(dtype):
@@ -59,7 +61,7 @@ def cmd_forward1d(args):
         prev = load_params().forward_solver
         cfg = get_user_input_for_config(ForwardSolverConfig1D,
                                         "Forward Solver Parameters", prev)
-        cfg = cfg.model_copy(update={"dtype": dtype})
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     else:
         cfg = ForwardSolverConfig1D(dtype=dtype)
     from vch_tpu.models.forward1d import ForwardSolver1D
@@ -84,7 +86,7 @@ def cmd_forward2d(args):
         prev = load_params("last_run_config_2d.json", two_d=True).forward_solver
         cfg = get_user_input_for_config(ForwardSolverConfig2D,
                                         "Forward Solver Parameters", prev)
-        cfg = cfg.model_copy(update={"dtype": dtype})
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     else:
         cfg = ForwardSolverConfig2D(dtype=dtype, Nx=args.n, Ny=args.n)
     from vch_tpu.models.forward2d import ForwardSolver2D
@@ -154,7 +156,7 @@ def cmd_optimize1d(args):
         fwd = get_user_input_for_config(ForwardSolverConfig1D,
                                         "STEP 1: Configure the Forward Solver",
                                         prev.forward_solver)
-        fwd = fwd.model_copy(update={"dtype": dtype})
+        fwd = dataclasses.replace(fwd, dtype=dtype)
         if not get_yes_no_input("Proceed to optimization with these parameters?"):
             return 0
         opt = get_user_input_for_config(OptimizationConfig,
@@ -196,7 +198,7 @@ def cmd_optimize2d(args):
         fwd = get_user_input_for_config(ForwardSolverConfig2D,
                                         "Forward Solver Parameters",
                                         prev.forward_solver)
-        fwd = fwd.model_copy(update={"dtype": dtype})
+        fwd = dataclasses.replace(fwd, dtype=dtype)
         opt = get_user_input_for_config(OptimizationConfig,
                                         "Optimization Parameters",
                                         prev.optimization)
@@ -254,7 +256,8 @@ def cmd_optimize2d(args):
                                      path=args.out_prefix + "mid_slice_2d.png")
         save_timelapse_2d(res.phi_final, prob.x, prob.y, prob.t_hist,
                           path=args.out_prefix + "phi_timelapse_2d.gif")
-        parameter_card({**fwd.model_dump(), **opt.model_dump()},
+        parameter_card({**dataclasses.asdict(fwd),
+                        **dataclasses.asdict(opt)},
                        path=args.out_prefix + "parameter_card.png")
         print("saved 2D artifact suite")
     save_params(fwd, opt, res.iterations,
@@ -299,8 +302,8 @@ def cmd_show_control(args):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="vch_tpu",
-                                 description="TPU-native sparse optimal "
-                                 "control of the viscous Cahn-Hilliard system")
+                                 description="sparse optimal control of the "
+                                 "viscous Cahn-Hilliard system")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("forward1d", help="standalone 1D forward solve")
@@ -326,7 +329,7 @@ def main(argv=None):
     p.add_argument("--T", type=float, default=1.0)
     p.add_argument("--grid-shard", action="store_true",
                    help="shard the grid's x-axis over all devices "
-                        "(for grids where one scenario outgrows a chip)")
+                        "(for grids where one scenario outgrows a device)")
     p.set_defaults(fn=cmd_optimize2d)
 
     p = sub.add_parser("sweep2d", help="batched (b3, kappa) sweep over a mesh")
@@ -343,6 +346,8 @@ def main(argv=None):
     p.set_defaults(fn=cmd_show_control)
 
     args = ap.parse_args(argv)
+    from vch_tpu.runtime import setup_compile_cache
+    setup_compile_cache()
     return args.fn(args)
 
 

@@ -1,117 +1,160 @@
 """Typed configuration, JSON persistence, and interactive prompting.
 
 Mirrors the reference's config surface (ref: src/1D/Vch_control_1D/config.py,
-src/2D/Vch_control_2D/config.py) — Pydantic models with the same field names,
+src/2D/Vch_control_2D/config.py) — models with the same field names,
 defaults, and validators (c2 > c1 at 1D config.py:104-109; u_max > u_min at
 :125-129), JSON round-trip persistence of the last run (config.py:142-171),
 and an interactive prompter that displays previous-run values and re-prompts
-only invalid fields (config.py:180-265).
+only invalid fields (config.py:180-265). The models are standard-library
+dataclasses: construction coerces each value to its field's type (so the
+prompter can pass raw strings), then checks the bounds and cross-field rules
+and raises ConfigError listing every invalid field.
 
-TPU-specific additions (new capability, absent in the reference):
-  - `dtype` / `newton_tol` / `newton_max_iter` solver knobs,
+Additions absent in the reference:
+  - `dtype` / `newton_tol` / `newton_max_iter` / Krylov solver knobs,
   - `BatchConfig` describing the scenario batch + mesh sharding.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
-from typing import Any, Dict, Optional, Type
-
-from pydantic import BaseModel, Field, ValidationError, field_validator
+import typing
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple, Type
 
 # Numerical safeguard: keep |phi| <= 1 - delta_sep (ref: Forward_solver.py:42).
 DELTA_SEP = 1e-2
 
 
-class _SolverKnobs(BaseModel):
-    """TPU-native solver knobs shared by the 1D and 2D configs."""
+class ConfigError(ValueError):
+    """Invalid configuration values; `errors` lists (field, message) pairs."""
 
-    dtype: str = Field("float64", description="Solver dtype: float64 (parity) or float32 (TPU speed)")
-    newton_tol: float = Field(1e-6, gt=0, description="Newton residual L2 tolerance (ref: Forward_solver.py:143)")
-    newton_rtol: float = Field(1e-5, ge=0, description="Newton tolerance relative to the step's initial residual; active in float32 where the absolute tol can sit below the noise floor")
-    newton_max_iter: int = Field(50, gt=0, description="Max Newton iterations per step")
-    krylov_tol: float = Field(1e-9, gt=0, description="Relative tolerance of the inner Krylov solve (2D)")
-    krylov_max_iter: int = Field(200, gt=0, description="Max inner Krylov iterations (2D)")
-    krylov_fixed_iters: int = Field(4, gt=0, description="Fixed Krylov trip count used on the float32/TPU path (compiles smaller, no convergence barrier; the Newton while_loop's residual tolerance absorbs the slack). Tuned on-chip at 64x64 B=32: trips 10/8/6/5/4 all produce the identical Newton-solve count and final cost, so 4 is pure speedup (22.8 -> 34.4 scenario-iters/s); 3 stalls the lockstep Newton loop (11 it/s), 2 burns 40% more Newton solves")
-    fused_solve_precision: Optional[str] = Field("bf16x3", description="Matmul precision INSIDE the fused-march kernel's Krylov solve only: 'bf16x3' (default — three pipelined single-pass bf16 dots on the (hi, lo) split, reproducing the scan path's validated 'high' arithmetic), 'highest' (6-pass f32), or 'default' (raw 1-pass bf16). Residuals/Laplacians/Armijo trials ALWAYS run at highest — an imprecise solve direction can only cost extra Newton iterations (visible in the measured counters), never accuracy; keeping the RESIDUAL at bf16x3 instead stalls the Armijo accept test near convergence (94 -> 38 it/s at 20 iters). Measured at 64x64 B=32 x 20 iters on-chip: bf16x3 99.2 it/s with +0.02% Newton solves and 3e-4 cost agreement vs highest's 94.1; raw bf16 DOUBLES the Newton solves (252800 vs 126557) for a net 91.0")
-    fused_krylov_fixed_iters: Optional[int] = Field(3, gt=0, description="Fixed Krylov trip count inside the fused whole-march kernel (ops/pallas_march.py), where each member runs its OWN Newton loop: a slightly under-converged solve costs only that member an extra Newton iteration, not a lockstep round for the whole batch. Measured at 64x64 B=256 on-chip: trips 3 = 131.8 scenario-iters/s with +0.15% Newton solves vs trips 4 = 120.3 (the scan path's '3 stalls at 11 it/s' was pure vmap-lockstep artifact); trips 2 burns +34% solves for 126.4. None inherits krylov_fixed_iters")
-    fused_march_block: Optional[int] = Field(None, ge=0, description="Member-block tile size of the fused whole-march AND whole-adjoint kernels: Bb > 0 stacks Bb members' fields per grid cell so right-multiplies become one (Bb*n, m) matmul and left-multiplies become Bb MXU-pipelined slice matmuls (measured 213 -> 80/67 ns per member-matmul at 64x64, BENCH_RESULTS blocked_march_microbench), with Newton/Armijo in masked per-member lockstep inside the block (max-of-Bb trips; measured Newton-solve counts unchanged). 0 = one member per cell (the round-3 design). None = AUTO: 8 for grids up to 96 (measured on-chip at 64x64: forward 1.14x, adjoint 1.44x — the pure-Krylov sweep converts the most chain latency), 0 above (at 128x128 the bigger matmuls are already streaming-bound and the stacked lane padding costs more than blocking wins back: forward 0.71x, adjoint 0.99x; BENCH_RESULTS blocked_march_onchip). Batches that do not divide by Bb fall back to the per-member kernel")
-    adjoint_solve_precision: Optional[str] = Field(None, description="Matmul precision inside the fused ADJOINT kernel's Krylov operator apply only: None/'highest' (6-pass f32) or 'bf16x3' (pipelined three-dot (hi,lo)-split, ~f32-equivalent arithmetic). Measured at 64x64 B=256 x 20 PGD iters on-chip: adjoint sweep 0.362 -> 0.312 s (14%), end-to-end 223.7 -> 236.2 it/s (+5.6%), gradient r within 8.5e-5 rel (the f32 noise floor), Newton solves +0.57% — but per-member 20-iter final costs diverge up to 1.7% rel (noise-floor gradient perturbations flip discrete line-search decisions on the chaotic T=1 trajectories). Default None -> highest: the ~6% is not worth breaking run-to-run cost comparability; opt in for pure-throughput sweeps")
-    adjoint_krylov_fixed_iters: Optional[int] = Field(5, gt=0, description="Fixed Krylov trip count for the ADJOINT step solves on the float32/TPU path. None inherits krylov_fixed_iters. Kept separate because the adjoint operator is condition-1e6 and has NO outer Newton loop to absorb an under-converged solve. The warm-started split-preconditioned solve is noise-floor-converged by 4 trips (f32-vs-f64 gradient relmax 1.4e-4/4.4e-4/2.8e-3 at 32/64/128 grids, trips-independent down to 4), and 20-iteration B=32 PGD runs at trips 4/5/6 produce BIT-IDENTICAL trajectories (same 126557 Newton solves, same costs; 104.5/94.1/85.1 it/s). 5 = one-trip margin above the measured floor")
-    linsolve_1d: str = Field("auto", description="1D Newton/adjoint linear solver: 'dense' (exact LU, reference parity), 'spectral' (matrix-free cosine-preconditioned BiCGStab), or 'auto' (dense for f64 N<=256, spectral otherwise)")
-    pallas_variant: str = Field("spectral", description="Fused-kernel basis: 'spectral' (BiCGStab in the cosine eigenbasis — diagonal preconditioner, half/third the matmuls per trip, measured 1.19x forward on-chip) or 'raw' (bit-parity with ops/linsolve.bicgstab_fixed / bicgstab_split_fixed)")
-    use_pallas: Optional[bool] = Field(None, description="Route the 2D Newton Schur solve through the fused Pallas BiCGStab kernel (whole Krylov solve in VMEM). None = auto: on for the float32 fixed-trip path on TPU, off elsewhere")
-    forward_matmul_precision: Optional[str] = Field(None, description="Matmul precision override for the FORWARD solver only ('default'|'high'|'highest'; None inherits the package-global 'highest'). The diagonally-dominant forward Schur system tolerates lower precision, and 6-pass 'highest' expansion makes 128x128+ compiles pathological; the condition-1e6 adjoint always keeps full precision")
-
-    @field_validator("dtype")
-    @classmethod
-    def _check_dtype(cls, v: str) -> str:
-        if v not in ("float32", "float64"):
-            raise ValueError("dtype must be 'float32' or 'float64'")
-        return v
-
-    @field_validator("linsolve_1d")
-    @classmethod
-    def _check_linsolve(cls, v: str) -> str:
-        if v not in ("auto", "dense", "spectral"):
-            raise ValueError("linsolve_1d must be 'auto', 'dense', or 'spectral'")
-        return v
+    def __init__(self, errors: List[Tuple[str, str]]):
+        self.errors = errors
+        super().__init__("; ".join(f"{name}: {msg}" for name, msg in errors))
 
 
+def _field(default, description: str = "", *, gt=None, ge=None):
+    return field(default=default, metadata={"description": description,
+                                            "gt": gt, "ge": ge})
+
+
+def _coerce(value, tp):
+    """Convert `value` to the annotated field type `tp` (str, int, float or
+    Optional of one); strings are parsed, so prompted input round-trips."""
+    args = typing.get_args(tp)
+    if typing.get_origin(tp) is typing.Union and type(None) in args:
+        if value is None or (isinstance(value, str)
+                             and value.strip().lower() in ("none", "null")):
+            return None
+        tp = next(a for a in args if a is not type(None))
+    if isinstance(value, bool):
+        raise ValueError(f"expected {tp.__name__}, got a boolean")
+    if tp is int:
+        if isinstance(value, float) and value.is_integer():
+            return int(value)
+        if isinstance(value, (int, str)):
+            return int(value)
+    elif tp is float:
+        if isinstance(value, (int, float, str)):
+            return float(value)
+    elif tp is str:
+        if isinstance(value, str):
+            return value
+    raise ValueError(f"expected {tp.__name__}, got {value!r}")
+
+
+class _Model:
+    """Coercion, bounds (`gt`/`ge` field metadata) and cross-field rules
+    (`_checks`) run on construction and on `dataclasses.replace`."""
+
+    def _checks(self) -> List[Tuple[str, str]]:
+        return []
+
+    def __post_init__(self):
+        hints = typing.get_type_hints(type(self))
+        errors = []
+        for f in dataclasses.fields(self):
+            if not f.metadata:          # nested containers
+                continue
+            try:
+                value = _coerce(getattr(self, f.name), hints[f.name])
+            except ValueError as e:
+                errors.append((f.name, str(e)))
+                continue
+            object.__setattr__(self, f.name, value)
+            gt, ge = f.metadata["gt"], f.metadata["ge"]
+            if value is not None and gt is not None and not value > gt:
+                errors.append((f.name, f"must be greater than {gt}"))
+            if value is not None and ge is not None and not value >= ge:
+                errors.append((f.name, f"must be greater than or equal to {ge}"))
+        if not errors:
+            errors = self._checks()
+        if errors:
+            raise ConfigError(errors)
+
+
+@dataclass
+class _SolverKnobs(_Model):
+    """Solver knobs shared by the 1D and 2D configs."""
+
+    dtype: str = _field("float64", "Solver dtype: float64 (reference parity) or float32 (accelerator throughput)")
+    newton_tol: float = _field(1e-6, "Newton residual L2 tolerance (ref: Forward_solver.py:143)", gt=0)
+    newton_rtol: float = _field(1e-5, "Newton tolerance relative to the step's initial residual; active in float32 where the absolute tol can sit below the noise floor", ge=0)
+    newton_max_iter: int = _field(50, "Max Newton iterations per step", gt=0)
+    krylov_tol: float = _field(1e-9, "Relative tolerance of the inner Krylov solve (2D)", gt=0)
+    krylov_max_iter: int = _field(200, "Max inner Krylov iterations (2D)", gt=0)
+    krylov_fixed_iters: int = _field(4, "Fixed Krylov trip count of the float32 forward solve (no convergence barrier; the Newton while_loop's residual tolerance absorbs the slack). On the vmapped path 3 trips stall the lockstep Newton loop and 2 burn extra Newton solves", gt=0)
+    adjoint_krylov_fixed_iters: Optional[int] = _field(5, "Fixed Krylov trip count for the ADJOINT step solves on the float32 path. None inherits krylov_fixed_iters. Kept separate because the adjoint operator is condition-1e6 and has NO outer Newton loop to absorb an under-converged solve; the warm-started split-preconditioned solve reaches the float32 noise floor by 4 trips, and 5 keeps one trip of margin", gt=0)
+    linsolve_1d: str = _field("auto", "1D Newton/adjoint linear solver: 'dense' (exact LU, reference parity), 'spectral' (matrix-free cosine-preconditioned BiCGStab), or 'auto' (dense for f64 N<=256, spectral otherwise)")
+    forward_matmul_precision: Optional[str] = _field(None, "Matmul precision override for the FORWARD solver only ('default'|'high'|'highest'; None inherits the package-global 'highest'). On the GPU 'high' and 'default' allow TF32 products; the condition-1e6 adjoint always keeps full precision")
+
+    def _checks(self):
+        errors = []
+        if self.dtype not in ("float32", "float64"):
+            errors.append(("dtype", "dtype must be 'float32' or 'float64'"))
+        if self.linsolve_1d not in ("auto", "dense", "spectral"):
+            errors.append(("linsolve_1d", "linsolve_1d must be 'auto', "
+                           "'dense', or 'spectral'"))
+        if self.c2 <= self.c1:
+            errors.append(("c2", f"c2 ({self.c2}) must be greater than c1 "
+                           f"({self.c1})"))
+        return errors
+
+
+@dataclass
 class ForwardSolverConfig1D(_SolverKnobs):
     """Parameters of the 1D forward simulation (ref: 1D config.py:91-109)."""
 
-    N: int = Field(128, gt=10, description="Number of spatial intervals")
-    Lx: float = Field(1.0, gt=0, description="Domain length")
-    T: float = Field(1.0, gt=0, description="Total simulation time")
-    dt_initial: float = Field(1e-2, gt=0, description="Initial time step size")
-    tau: float = Field(0.05, description="Viscosity parameter for phi-equation")
-    gamma: float = Field(10.0, gt=0, description="Relaxation parameter")
-    c1: float = Field(0.75, description="Flory-Huggins convex coefficient")
-    c2: float = Field(1.0, description="Concave (quadratic) coefficient")
-    kappa: float = Field(0.03**2, ge=0, description="Gradient energy coefficient")
-    newton_max_iter: int = Field(50, gt=0, description="Max Newton iterations (ref 1D: 50)")
-
-    @field_validator("c2")
-    @classmethod
-    def check_c2_greater_than_c1(cls, c2_val: float, info) -> float:
-        c1_val = info.data.get("c1", 0.0)
-        if c2_val <= c1_val:
-            raise ValueError(f"c2 ({c2_val}) must be greater than c1 ({c1_val})")
-        return c2_val
+    N: int = _field(128, "Number of spatial intervals", gt=10)
+    Lx: float = _field(1.0, "Domain length", gt=0)
+    T: float = _field(1.0, "Total simulation time", gt=0)
+    dt_initial: float = _field(1e-2, "Initial time step size", gt=0)
+    tau: float = _field(0.05, "Viscosity parameter for phi-equation")
+    gamma: float = _field(10.0, "Relaxation parameter", gt=0)
+    c1: float = _field(0.75, "Flory-Huggins convex coefficient")
+    c2: float = _field(1.0, "Concave (quadratic) coefficient")
+    kappa: float = _field(0.03**2, "Gradient energy coefficient", ge=0)
+    newton_max_iter: int = _field(50, "Max Newton iterations (ref 1D: 50)", gt=0)
 
 
+@dataclass
 class ForwardSolverConfig2D(_SolverKnobs):
     """Parameters of the 2D forward simulation (ref: 2D config.py:83-120)."""
 
-    Nx: int = Field(128, gt=10, description="Number of spatial intervals in x")
-    Ny: int = Field(128, gt=10, description="Number of spatial intervals in y")
-    Lx: float = Field(1.0, gt=0, description="Domain length in x")
-    Ly: float = Field(1.0, gt=0, description="Domain length in y")
-    T: float = Field(1.0, gt=0, description="Total simulation time")
-    dt_initial: float = Field(1e-2, gt=0, description="Initial time step size")
-    tau: float = Field(0.05, description="Viscosity parameter for phi-equation")
-    gamma: float = Field(10.0, gt=0, description="Relaxation parameter")
-    c1: float = Field(0.75, description="Flory-Huggins convex coefficient")
-    c2: float = Field(1.0, description="Concave (quadratic) coefficient")
-    kappa: float = Field(0.01**2, ge=0, description="Gradient energy coefficient")
-    newton_max_iter: int = Field(500, gt=0, description="Max Newton iterations (ref 2D: 500)")
-
-    @field_validator("c2")
-    @classmethod
-    def check_c2_greater_than_c1(cls, c2_val: float, info) -> float:
-        c1_val = info.data.get("c1", 0.0)
-        if c2_val <= c1_val:
-            raise ValueError(f"c2 ({c2_val}) must be greater than c1 ({c1_val})")
-        return c2_val
-
-    def resolved_fused_block(self) -> int:
-        """Member-block size of the fused kernels after the auto rule
-        (see fused_march_block: blocking wins only while the per-member
-        matmuls are latency-bound, i.e. small grids)."""
-        bb = self.fused_march_block
-        if bb is None:
-            return 8 if max(self.Nx, self.Ny) <= 96 else 0
-        return bb
+    Nx: int = _field(128, "Number of spatial intervals in x", gt=10)
+    Ny: int = _field(128, "Number of spatial intervals in y", gt=10)
+    Lx: float = _field(1.0, "Domain length in x", gt=0)
+    Ly: float = _field(1.0, "Domain length in y", gt=0)
+    T: float = _field(1.0, "Total simulation time", gt=0)
+    dt_initial: float = _field(1e-2, "Initial time step size", gt=0)
+    tau: float = _field(0.05, "Viscosity parameter for phi-equation")
+    gamma: float = _field(10.0, "Relaxation parameter", gt=0)
+    c1: float = _field(0.75, "Flory-Huggins convex coefficient")
+    c2: float = _field(1.0, "Concave (quadratic) coefficient")
+    kappa: float = _field(0.01**2, "Gradient energy coefficient", ge=0)
+    newton_max_iter: int = _field(500, "Max Newton iterations (ref 2D: 500)", gt=0)
+    newton_rtol: float = _field(5e-8, "Newton tolerance relative to the step's initial residual (float32 only). 5e-8 keeps the 64x64 float32 sweep within 4e-6 of the float64 path's cost at the float64 path's Newton-solve count; 1e-5 halves the solves but sits 7e-4 away (CPU float32, 2 PGD iterations)", ge=0)
 
 
 # The reference names both dim variants `ForwardSolverConfig`; keep an alias so
@@ -119,28 +162,27 @@ class ForwardSolverConfig2D(_SolverKnobs):
 ForwardSolverConfig = ForwardSolverConfig1D
 
 
-class OptimizationConfig(BaseModel):
+@dataclass
+class OptimizationConfig(_Model):
     """PGD loop parameters (ref: 1D config.py:113-129, 2D config.py:123-150).
 
     Defaults differ by dimension in the reference; use the classmethods
     `defaults_1d()` / `defaults_2d()` to pick the matching set.
     """
 
-    b1: float = Field(0.3, ge=0, description="Weight for space-time tracking cost")
-    b2: float = Field(13.0, ge=0, description="Weight for terminal cost")
-    b3: float = Field(0.0019, ge=0, description="Weight for control energy cost")
-    kappa_sparsity: float = Field(9e-5, ge=0, description="Sparsity weight for L1 term")
-    alpha_max: float = Field(100.0, gt=0, description="Initial step size for line search")
-    max_iter: int = Field(1000, gt=10, description="Max number of gradient descent iterations")
-    u_min: float = Field(-1.0, description="Lower bound for the control")
-    u_max: float = Field(1.0, description="Upper bound for the control")
+    b1: float = _field(0.3, "Weight for space-time tracking cost", ge=0)
+    b2: float = _field(13.0, "Weight for terminal cost", ge=0)
+    b3: float = _field(0.0019, "Weight for control energy cost", ge=0)
+    kappa_sparsity: float = _field(9e-5, "Sparsity weight for L1 term", ge=0)
+    alpha_max: float = _field(100.0, "Initial step size for line search", gt=0)
+    max_iter: int = _field(1000, "Max number of gradient descent iterations", gt=10)
+    u_min: float = _field(-1.0, "Lower bound for the control")
+    u_max: float = _field(1.0, "Upper bound for the control")
 
-    @field_validator("u_max")
-    @classmethod
-    def u_max_must_be_greater_than_u_min(cls, u_max_val: float, info) -> float:
-        if "u_min" in info.data and u_max_val <= info.data["u_min"]:
-            raise ValueError("u_max must be strictly greater than u_min.")
-        return u_max_val
+    def _checks(self):
+        if self.u_max <= self.u_min:
+            return [("u_max", "u_max must be strictly greater than u_min.")]
+        return []
 
     @classmethod
     def defaults_1d(cls, **over) -> "OptimizationConfig":
@@ -154,31 +196,42 @@ class OptimizationConfig(BaseModel):
         return cls(**base)
 
 
-class BatchConfig(BaseModel):
-    """Scenario-batch + sharding description (TPU-native addition)."""
+@dataclass
+class BatchConfig(_Model):
+    """Scenario-batch + sharding description (no reference analog)."""
 
-    batch: int = Field(1, ge=1, description="Number of control scenarios")
-    mesh_axis: str = Field("scenarios", description="Mesh axis name the batch is sharded over")
-    data_shards: int = Field(1, ge=1, description="Number of mesh shards along the batch axis")
+    batch: int = _field(1, "Number of control scenarios", ge=1)
+    mesh_axis: str = _field("scenarios", "Mesh axis name the batch is sharded over")
+    data_shards: int = _field(1, "Number of mesh shards along the batch axis", ge=1)
 
 
-class SimulationParameters(BaseModel):
+@dataclass
+class SimulationParameters(_Model):
     """Container persisted between sessions (ref: 1D config.py:135-139)."""
 
-    forward_solver: ForwardSolverConfig1D = Field(default_factory=ForwardSolverConfig1D)
-    optimization: OptimizationConfig = Field(default_factory=OptimizationConfig)
-    last_run_iterations: int = Field(0, description="Number of iterations from the last run.")
+    forward_solver: ForwardSolverConfig1D = field(default_factory=ForwardSolverConfig1D)
+    optimization: OptimizationConfig = field(default_factory=OptimizationConfig)
+    last_run_iterations: int = _field(0, "Number of iterations from the last run.")
+
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any]):
+        hints = typing.get_type_hints(cls)
+        kw = dict(data)
+        for name in ("forward_solver", "optimization"):
+            if name in kw:
+                kw[name] = hints[name](**kw[name])
+        return cls(**kw)
 
 
-class SimulationParameters2D(BaseModel):
+@dataclass
+class SimulationParameters2D(SimulationParameters):
     """2D variant of the persisted container (ref: 2D config.py:153-157)."""
 
-    forward_solver: ForwardSolverConfig2D = Field(default_factory=ForwardSolverConfig2D)
-    optimization: OptimizationConfig = Field(default_factory=lambda: OptimizationConfig.defaults_2d())
-    last_run_iterations: int = Field(0, description="Number of iterations from the last run.")
+    forward_solver: ForwardSolverConfig2D = field(default_factory=ForwardSolverConfig2D)
+    optimization: OptimizationConfig = field(default_factory=OptimizationConfig.defaults_2d)
 
 
-def save_params(fwd_config: BaseModel, opt_config: OptimizationConfig,
+def save_params(fwd_config, opt_config: OptimizationConfig,
                 iteration_count: int, filepath: str = "last_run_config.json") -> None:
     """Persist configs + final iteration count (ref: 1D config.py:142-159)."""
     container = (SimulationParameters2D if isinstance(fwd_config, ForwardSolverConfig2D)
@@ -187,7 +240,7 @@ def save_params(fwd_config: BaseModel, opt_config: OptimizationConfig,
                        last_run_iterations=iteration_count)
     try:
         with open(filepath, "w") as f:
-            f.write(params.model_dump_json(indent=4))
+            f.write(json.dumps(dataclasses.asdict(params), indent=4))
         print(f"Configuration saved to '{filepath}'.")
     except IOError as e:
         print(f"[Warning] Could not save configuration file: {e}")
@@ -199,9 +252,10 @@ def load_params(filepath: str = "last_run_config.json", two_d: bool = False):
     try:
         with open(filepath, "r") as f:
             data = json.load(f)
+        params = container.from_dict(data)
         print(f"Loaded previous configuration from '{filepath}'.")
-        return container(**data)
-    except (FileNotFoundError, ValidationError, json.JSONDecodeError):
+        return params
+    except (FileNotFoundError, ValueError, TypeError, json.JSONDecodeError):
         print("No valid previous configuration found. Using default parameters.")
         return container()
 
@@ -217,45 +271,44 @@ def get_yes_no_input(prompt: str) -> bool:
         print("Invalid input. Please enter 'y' or 'n'.")
 
 
-def get_user_input_for_config(config_model: Type[BaseModel], title: str,
-                              previous_instance: Optional[BaseModel] = None) -> BaseModel:
+def get_user_input_for_config(config_model: Type[_Model], title: str,
+                              previous_instance: Optional[_Model] = None) -> _Model:
     """Interactive per-field prompting with validation re-prompts.
 
     Behavior mirrors the reference (1D config.py:180-265): show previous-run
     values as a reference table, prompt each field with the class default in
-    brackets, validate with Pydantic, re-prompt only the invalid fields.
+    brackets, validate, re-prompt only the invalid fields.
     """
     print("\n" + "=" * 60)
     print(f"--- {title} ---")
     if previous_instance is not None:
         print("For your reference, here are the parameters from the last run:")
         print("." * 50)
-        for name, value in previous_instance.model_dump().items():
+        for name, value in dataclasses.asdict(previous_instance).items():
             print(f"  {name:<15}: {value}")
         print("." * 50)
     print("Press Enter to accept the original default value shown in [brackets].")
     print("=" * 60)
 
     user_params: Dict[str, Any] = {}
-    fields = config_model.model_fields
-    for name, info in fields.items():
-        default = info.default
-        desc = info.description or ""
-        raw = input(f"-> Enter '{name}' ({desc}) [default: {default}]: ").strip()
-        user_params[name] = default if raw == "" else raw
+    fields = {f.name: f for f in dataclasses.fields(config_model)}
+    for name, f in fields.items():
+        desc = f.metadata.get("description", "")
+        raw = input(f"-> Enter '{name}' ({desc}) [default: {f.default}]: ").strip()
+        user_params[name] = f.default if raw == "" else raw
 
     while True:
         try:
             validated = config_model(**user_params)
             print("\nConfiguration accepted and validated.")
             return validated
-        except ValidationError as e:
+        except ConfigError as e:
             print("\nPARAMETER ERROR: Please correct the following value(s):")
-            invalid = {err["loc"][0] for err in e.errors() if err.get("loc")}
-            for err in e.errors():
-                print(f"  - {err['loc'][0]}: {err['msg']}")
-            for name in invalid:
-                info = fields[name]
-                raw = input(f"-> (Correction) Enter '{name}' ({info.description}) "
-                            f"[default: {info.default}]: ").strip()
-                user_params[name] = info.default if raw == "" else raw
+            for name, msg in e.errors:
+                print(f"  - {name}: {msg}")
+            for name in dict(e.errors):
+                f = fields[name]
+                raw = input(f"-> (Correction) Enter '{name}' "
+                            f"({f.metadata.get('description', '')}) "
+                            f"[default: {f.default}]: ").strip()
+                user_params[name] = f.default if raw == "" else raw

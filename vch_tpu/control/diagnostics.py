@@ -11,7 +11,7 @@ Ref parity:
     second_order_conditions.py:33-55); the 2D variant only handles bound
     activity (second_order_conditions_2d.py:35-88).
 
-TPU-native improvement: the probe directions form a BATCH axis — all
+Improvement: the probe directions form a BATCH axis — all
 perturbed forward solves run as one vmapped computation instead of the
 reference's sequential full simulations (second_order_conditions.py:142-175).
 """

@@ -12,7 +12,6 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 
 from vch_tpu.config import ForwardSolverConfig1D, OptimizationConfig
@@ -68,18 +67,8 @@ class ControlProblem2D:
 
         opt = self.opt_config
 
-        # single-scenario forward: route through the fused whole-march
-        # Pallas kernel at B=1 on the f32/TPU path (ops/pallas_march.py) —
-        # same semantics, ~1s compiles and no per-step launch overhead
-        if (jax.default_backend() == "tpu"
-                and self.solver.fused_march_available()):
-            def forward(u):
-                phi, _, _ = self.solver.march_fused_batch(
-                    u[None], self._phi0_dev[None])
-                return phi[0]
-        else:
-            def forward(u):
-                return self.solver._simulate_impl(u, self._phi0_dev)
+        def forward(u):
+            return self.solver._simulate_impl(u, self._phi0_dev)
 
         if gradient_mode == "exact":
             from vch_tpu.models.adjoint_exact2d import ExactAdjoint2D

@@ -1,4 +1,4 @@
-"""1D adjoint (p, q, r) backward solver, TPU-native reverse `lax.scan`.
+"""1D adjoint (p, q, r) backward solver, a reverse `lax.scan`.
 
 Implements the reference's optimize-then-discretize adjoint scheme
 (ref: backward_solver.py:48-125) exactly — including its quirks, which the
@@ -18,7 +18,7 @@ at import time, backward_solver.py:29-33), this solver threads the runtime
 config — identical results for default physics, correct results otherwise.
 
 Each step is one dense (N+1) linear solve; under vmap over scenarios these
-become batched LUs on the MXU.
+become batched LUs.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""2D adjoint (p, q, r) backward solver, TPU-native reverse `lax.scan`.
+"""2D adjoint (p, q, r) backward solver, a reverse `lax.scan`.
 
 Implements the reference's 2D adjoint scheme (backward2_solver.py:75-246)
 with the same operators (L^2 without kappa; see adjoint1d.py notes):
@@ -7,7 +7,7 @@ with the same operators (L^2 without kappa; see adjoint1d.py notes):
     B(phi_np1) = I - tau L - (dt/2) L^2 + (dt/2) diag(f''(phi_np1)) L
     terminal: (I - tau L) p_T = b2 (phi_T - phi_Omega);  q = -L p;  r_T = 0.
 
-TPU-native solves replace scipy spsolve (backward2_solver.py:185, :229):
+Structured solves replace scipy spsolve (backward2_solver.py:185, :229):
   - the terminal operator (I - tau L) is constant-coefficient, hence EXACTLY
     diagonal in the cosine basis — solved with two transform matmul pairs;
   - the per-step A solve is matrix-free BiCGStab preconditioned by the
@@ -48,107 +48,80 @@ class AdjointSolver2D:
         self._krylov_fixed = (None if self.dtype == jnp.float64
                               else (cfg.adjoint_krylov_fixed_iters
                                     or cfg.krylov_fixed_iters))
-        # Fused Pallas split-preconditioned solve (whole Krylov loop in
-        # VMEM): same auto rule as the forward solver — f32 fixed-trip path
-        # on TPU, gated on the solve fitting VMEM (see forward2d). The
-        # recurrence matches bicgstab_split with the bicgstab_fixed
-        # freeze/best-iterate policy.
-        from vch_tpu.ops.pallas_kernels import kernel_vmem_fits
-        self._use_pallas = (cfg.use_pallas if cfg.use_pallas is not None
-                            else (self._krylov_fixed is not None
-                                  and jax.default_backend() == "tpu"
-                                  and kernel_vmem_fits(cfg.Nx + 1,
-                                                       cfg.Ny + 1)))
-        self._pallas_interpret = False
-        self._pallas_variant = getattr(cfg, "pallas_variant", "spectral")
         self._run = jax.jit(self._run_impl)
 
-    def _run_impl(self, phi_hist, dts, b1, b2, phi_Q, phi_T_target):
+    def _terminal(self, phi_T, phi_T_target, b2):
+        """(I - tau L) p_T = b2 (phi_T - phi_Omega), exactly, in the cosine
+        basis; q_T = -L p_T; r_T = 0."""
+        op = self.op
+        rhs_T = b2 * (phi_T - phi_T_target)
+        p_T = from_spectral(op, to_spectral(op, rhs_T)
+                            / (1.0 - self.config.tau * op.lam))
+        q_T = -apply_laplacian_2d(op.Lx, op.Ly, p_T)
+        return p_T, q_T, jnp.zeros_like(p_T)
+
+    def _step(self, carry, phi_n, phi_np1, src_n, src_np1, dt, b1):
+        """One backward step (p, q, r)_{n+1} -> (p, q, r)_n. Shared by the
+        full sweep and the checkpointed one (models/lowmem.py), so both
+        run the same program."""
         cfg = self.config
         op = self.op
         tau, gamma, c1, c2 = cfg.tau, cfg.gamma, cfg.c1, cfg.c2
         lap = partial(apply_laplacian_2d, op.Lx, op.Ly)
+        p_next, q_next, r_next = carry
 
-        # Terminal solve (I - tau L) p_T = b2 (phi_T - phi_Omega): exact
-        # cosine-diagonal inversion.
-        rhs_T = b2 * (phi_hist[-1] - phi_T_target)
-        p_T = from_spectral(op, to_spectral(op, rhs_T) / (1.0 - tau * op.lam))
-        q_T = -lap(p_T)
-        r_T = jnp.zeros_like(p_T)
+        fpp_n = fpp_log(phi_n, c1, c2)
+        fpp_np1 = fpp_log(phi_np1, c1, c2)
+        fbar = jnp.mean(fpp_n)
 
+        # rhs = B(phi_np1) p_{n+1} + src
+        w1 = lap(p_next)
+        Bp = p_next - tau * w1 - 0.5 * dt * lap(w1) + 0.5 * dt * fpp_np1 * w1
+        rhs = Bp + 0.5 * dt * b1 * (src_n + src_np1)
+
+        def apply_A(v):
+            w = lap(v)
+            return v - tau * w + 0.5 * dt * (lap(w) - fpp_n * w)
+
+        denom = (1.0 - tau * op.lam + 0.5 * dt * op.lam ** 2
+                 - 0.5 * dt * fbar * op.lam)
+        inv_sqrt_denom = jax.lax.rsqrt(jnp.abs(denom))
+
+        def apply_Phalf(v):
+            return from_spectral(op, to_spectral(op, v) * inv_sqrt_denom)
+
+        def apply_Phalf_inv(v):
+            return from_spectral(op, to_spectral(op, v) / inv_sqrt_denom)
+
+        # split-preconditioned Krylov: the raw adjoint operator is
+        # biharmonic-dominated (condition ~1e6) and f32 Krylov on it
+        # stalls at eps*cond = O(1) relative error (observed as a 1e14
+        # blow-up of the backward sweep); conditioning the system before
+        # Krylov keeps iterates O(1)-scaled and restores f32 accuracy.
+        if self._krylov_fixed is not None:
+            p_n = bicgstab_split_fixed(apply_A, rhs, apply_Phalf,
+                                       apply_Phalf_inv,
+                                       n_iter=self._krylov_fixed, x0=p_next)
+        else:
+            p_n = bicgstab_split(apply_A, rhs, apply_Phalf, apply_Phalf_inv,
+                                 tol=self.krylov_tol,
+                                 max_iter=cfg.krylov_max_iter, x0=p_next)
+        q_n = -lap(p_n)
+        den = gamma + 0.5 * dt
+        r_n = ((gamma - 0.5 * dt) / den * r_next
+               + 0.5 * dt / den * (q_n + q_next))
+
+        skip = dt <= 1e-14
+        return (jnp.where(skip, p_next, p_n),
+                jnp.where(skip, q_next, q_n),
+                jnp.where(skip, r_next, r_n))
+
+    def _run_impl(self, phi_hist, dts, b1, b2, phi_Q, phi_T_target):
+        p_T, q_T, r_T = self._terminal(phi_hist[-1], phi_T_target, b2)
         src_all = phi_hist - phi_Q
 
         def step(carry, inp):
-            p_next, q_next, r_next = carry
-            phi_n, phi_np1, src_n, src_np1, dt = inp
-
-            fpp_n = fpp_log(phi_n, c1, c2)
-            fpp_np1 = fpp_log(phi_np1, c1, c2)
-            fbar = jnp.mean(fpp_n)
-
-            # rhs = B(phi_np1) p_{n+1} + src
-            w1 = lap(p_next)
-            Bp = p_next - tau * w1 - 0.5 * dt * lap(w1) + 0.5 * dt * fpp_np1 * w1
-            rhs = Bp + 0.5 * dt * b1 * (src_n + src_np1)
-
-            def apply_A(v):
-                w = lap(v)
-                return v - tau * w + 0.5 * dt * (lap(w) - fpp_n * w)
-
-            denom = (1.0 - tau * op.lam + 0.5 * dt * op.lam ** 2
-                     - 0.5 * dt * fbar * op.lam)
-            inv_sqrt_denom = jax.lax.rsqrt(jnp.abs(denom))
-
-            def apply_Phalf(v):
-                return from_spectral(op, to_spectral(op, v) * inv_sqrt_denom)
-
-            def apply_Phalf_inv(v):
-                return from_spectral(op,
-                                     to_spectral(op, v) / inv_sqrt_denom)
-
-            # split-preconditioned Krylov: the raw adjoint operator is
-            # biharmonic-dominated (condition ~1e6) and f32 Krylov on it
-            # stalls at eps*cond = O(1) relative error (observed as a 1e14
-            # blow-up of the backward sweep); conditioning the system before
-            # Krylov keeps iterates O(1)-scaled and restores f32 accuracy.
-            if self._use_pallas and self._krylov_fixed is not None:
-                from vch_tpu.ops import pallas_kernels as pk
-                if self._pallas_variant == "spectral":
-                    # spectral-basis form: the similarity transform and the
-                    # split preconditioner are both diagonal in the cosine
-                    # basis, so each preconditioned apply is 4 matmuls
-                    # instead of 12 (two Phalf conjugations + operator)
-                    p_n = pk.bicgstab_adjoint_spectral_pallas(
-                        op.Vx_inv, op.Vy_inv.T, op.Vx, op.Vy.T, op.lam,
-                        inv_sqrt_denom, fpp_n, rhs, p_next, tau, 0.5 * dt,
-                        n_iter=self._krylov_fixed,
-                        interpret=self._pallas_interpret)
-                else:
-                    p_n = pk.bicgstab_adjoint_pallas(
-                        op.Lx, op.Ly.T, op.Vx_inv, op.Vy_inv.T, op.Vx,
-                        op.Vy.T, inv_sqrt_denom, fpp_n, rhs, p_next, tau,
-                        0.5 * dt, n_iter=self._krylov_fixed,
-                        interpret=self._pallas_interpret)
-            elif self._krylov_fixed is not None:
-                # f32 without VMEM fit (256x256): same split conditioning
-                # and trip policy, composed XLA ops
-                p_n = bicgstab_split_fixed(apply_A, rhs, apply_Phalf,
-                                           apply_Phalf_inv,
-                                           n_iter=self._krylov_fixed,
-                                           x0=p_next)
-            else:
-                p_n = bicgstab_split(apply_A, rhs, apply_Phalf,
-                                     apply_Phalf_inv, tol=self.krylov_tol,
-                                     max_iter=cfg.krylov_max_iter, x0=p_next)
-            q_n = -lap(p_n)
-            den = gamma + 0.5 * dt
-            r_n = ((gamma - 0.5 * dt) / den * r_next
-                   + 0.5 * dt / den * (q_n + q_next))
-
-            skip = dt <= 1e-14
-            out = (jnp.where(skip, p_next, p_n),
-                   jnp.where(skip, q_next, q_n),
-                   jnp.where(skip, r_next, r_n))
+            out = self._step(carry, *inp, b1)
             return out, out
 
         inputs = (phi_hist[:-1], phi_hist[1:], src_all[:-1], src_all[1:], dts)
@@ -159,48 +132,6 @@ class AdjointSolver2D:
         q = jnp.concatenate([q_rev, q_T[None]], axis=0)
         r = jnp.concatenate([r_rev, r_T[None]], axis=0)
         return p, q, r
-
-    def fused_march_available(self) -> bool:
-        """Whether the whole-sweep fused Pallas kernel can carry the batched
-        adjoint (f32 fixed-trip path with the solve VMEM-resident)."""
-        from vch_tpu.ops.pallas_kernels import kernel_vmem_fits
-        cfg = self.config
-        return (self._krylov_fixed is not None
-                and kernel_vmem_fits(cfg.Nx + 1, cfg.Ny + 1))
-
-    def adjoint_fused_batch(self, phi_hist, dts, b1, b2, phi_Q, phi_T,
-                            interpret: bool = False):
-        """Batched backward sweep in ONE Pallas kernel (ops/pallas_march.py).
-
-        Args: phi_hist/phi_Q (B, M+1, ...), phi_T (B, ...), b1/b2 (B,).
-        Returns r (B, M+1, ...) — the gradient channel only (what the
-        batched PGD consumes); semantics match vmap(_run_impl)[2].
-        """
-        from vch_tpu.ops.pallas_march import (adjoint_fused_2d,
-                                              adjoint_fused_2d_blocked)
-        assert self._krylov_fixed is not None
-        cfg = self.config
-        op = self.op
-        bb = cfg.resolved_fused_block()
-        if bb and phi_T.shape[0] % bb == 0:
-            # member-block-tiled adjoint (config.fused_march_block): the
-            # sweep is the pure dependent-Krylov-chain case, where stacked
-            # member tiles convert the most latency (see
-            # _adjoint_kernel_factory_blocked)
-            return adjoint_fused_2d_blocked(
-                dts, phi_hist, phi_Q, phi_T, b1, b2, op.Lx, op.Ly.T,
-                op.Vx_inv, op.Vy_inv.T, op.Vx, op.Vy.T, op.lam,
-                cfg.tau, cfg.gamma, cfg.c1, cfg.c2, self._krylov_fixed,
-                interpret=interpret,
-                solve_prec=getattr(cfg, "adjoint_solve_precision", None)
-                or "highest", block_b=bb)
-        return adjoint_fused_2d(
-            dts, phi_hist, phi_Q, phi_T, b1, b2, op.Lx, op.Ly.T,
-            op.Vx_inv, op.Vy_inv.T, op.Vx, op.Vy.T, op.lam,
-            cfg.tau, cfg.gamma, cfg.c1, cfg.c2, self._krylov_fixed,
-            interpret=interpret,
-            solve_prec=getattr(cfg, "adjoint_solve_precision", None)
-            or "highest")
 
     def run(self, phi_hist, t_hist, b1: float, b2: float,
             phi_Q: Optional[np.ndarray] = None,

@@ -1,4 +1,4 @@
-"""1D viscous Cahn–Hilliard forward solver (Crank–Nicolson + Newton), TPU-native.
+"""1D viscous Cahn–Hilliard forward solver (Crank–Nicolson + Newton) in JAX.
 
 Re-architecture of the reference's Python time loop + monolithic dense Newton
 (ref: Forward_solver.py:139-235, :286-397) as:
@@ -163,7 +163,7 @@ def newton_1d(L, phi_old, mu_old, w_old, w_new, dt, tau, c1, c2, kappa,
             if spectral_op is None:
                 dphi, dmu = newton_schur_solve_1d(L, phi, Rphi, Rmu, dt, tau,
                                                   c1, kappa, delta_sep)
-            else:  # matrix-free path: large N / big batches / f32-TPU
+            else:  # matrix-free path: large N / big batches / f32
                 dphi, dmu = newton_schur_solve_1d_spectral(
                     spectral_op, phi, Rphi, Rmu, dt, tau, c1, kappa,
                     delta_sep, tol=krylov_tol, fixed_iters=krylov_fixed)
@@ -213,7 +213,7 @@ class ForwardSolver1D:
         self._rtol = 0.0 if self.dtype == jnp.float64 else cfg.newton_rtol
         self._stagnation = self.dtype != jnp.float64
         # Linear-solve strategy: exact dense Schur LU for parity-scale f64
-        # runs; matrix-free spectral BiCGStab for f32/TPU or large N where
+        # runs; matrix-free spectral BiCGStab for f32 or large N where
         # batched (N+1)^3 LUs would dominate (BASELINE.md config 2).
         self._use_spectral = (
             cfg.linsolve_1d == "spectral"
@@ -287,38 +287,6 @@ class ForwardSolver1D:
             step, carry0, inputs)
         phi_hist = jnp.concatenate([phi0[None], phis], axis=0)
         return phi_hist, MarchStats(nsolve, first_bad)
-
-    def fused_march_available(self, batch: int) -> bool:
-        """Whether the fused whole-march 1D kernel can carry a batch of
-        this size (f32 spectral fixed-trip path, (B, n) blocks in VMEM)."""
-        from vch_tpu.ops.pallas_kernels import kernel_vmem_fits
-        return (self._use_spectral and self._krylov_fixed is not None
-                and kernel_vmem_fits(batch, self.config.N + 1))
-
-    def march_fused_batch(self, u, phi0, interpret: bool = False):
-        """Batched 1D forward march in ONE Pallas kernel (grid = time axis,
-        whole batch per cell — see ops/pallas_march.march_fused_1d).
-
-        Args: u (B, M+1, N+1) CORE layout, phi0 (B, N+1).
-        Returns (phi_hist (B, M+1, N+1), newton_solves (B,), first_bad (B,)).
-        Newton/Armijo run in masked per-member lockstep (vmapped-scan
-        semantics); the Krylov path is the spectral-basis fixed-trip
-        BiCGStab, so trajectories match the scan path at the Newton
-        tolerance (not bitwise — the scan path preconditions in the raw
-        basis)."""
-        from vch_tpu.ops.pallas_march import march_fused_1d
-        assert self._use_spectral and self._krylov_fixed is not None
-        cfg = self.config
-        op = self._op1d
-        dtype = self.dtype
-        return march_fused_1d(
-            jnp.asarray(self.dts, dtype), phi0, u,
-            op.L.T, op.Vinv.T, op.V.T, op.lam[None, :],
-            jnp.asarray(self._wts_h, dtype)[None, :],
-            cfg.tau, cfg.c1, cfg.c2, cfg.kappa, cfg.gamma, DELTA_SEP,
-            float(cfg.Lx), cfg.newton_tol, self._rtol, cfg.newton_max_iter,
-            self._krylov_fixed, stagnation_exit=self._stagnation,
-            interpret=interpret)
 
     # -- public API -------------------------------------------------------
     def simulate(self, control: Optional[np.ndarray] = None,

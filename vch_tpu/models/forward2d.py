@@ -1,4 +1,4 @@
-"""2D viscous Cahn–Hilliard forward solver, TPU-native.
+"""2D viscous Cahn–Hilliard forward solver in JAX.
 
 Re-architecture of the reference's sparse-LU-based 2D solver
 (ref: Forward2_solver.py:323-427 Newton, :489-608 marcher) as:
@@ -7,7 +7,7 @@ Re-architecture of the reference's sparse-LU-based 2D solver
   - Newton via `lax.while_loop` whose linear solve is the exact Schur
     complement system solved MATRIX-FREE by spectral-preconditioned BiCGStab
     (ops/linsolve.py) — the Laplacian and cosine transforms are dense 1D
-    matmuls (MXU), replacing scipy spsolve on 2*Nloc unknowns
+    matmuls, replacing scipy spsolve on 2*Nloc unknowns
     (Forward2_solver.py:370), the dominant cost of the reference program
     (SURVEY.md section 3.2),
   - 2D Newton semantics preserved: mu re-initialized from the energy gradient
@@ -19,6 +19,7 @@ Re-architecture of the reference's sparse-LU-based 2D solver
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -67,16 +68,12 @@ def newton_2d(op, phi_old, mu_old, w_old, w_new, dt, tau, c1, c2, kappa,
               mu_init, record_history: bool = False,
               rtol: float = 0.0, stagnation_exit: bool = False,
               krylov_fixed: int | None = None,
-              return_iters: bool = False, use_pallas: bool = False,
-              pallas_interpret: bool = False,
-              pallas_variant: str = "spectral"):
+              return_iters: bool = False):
     """2D monolithic Newton with best-trial-fallback Armijo.
 
     rtol / stagnation_exit are the float32 robustness guards described in
     forward1d.newton_1d (relative convergence + no-progress exit).
-    return_iters appends the measured count of Newton linear solves.
-    use_pallas routes the Schur solve through the fused Pallas BiCGStab
-    kernel (ops/pallas_kernels.py) — requires krylov_fixed."""
+    return_iters appends the measured count of Newton linear solves."""
     dtype = phi_old.dtype
 
     def resid(phi, mu):
@@ -144,9 +141,7 @@ def newton_2d(op, phi_old, mu_old, w_old, w_new, dt, tau, c1, c2, kappa,
             dphi, dmu = newton_schur_solve_2d(
                 op, phi, Rphi, Rmu, dt, tau, c1, kappa, delta_sep,
                 tol=krylov_tol, max_iter=krylov_max_iter,
-                fixed_iters=krylov_fixed, use_pallas=use_pallas,
-                pallas_interpret=pallas_interpret,
-                pallas_variant=pallas_variant)
+                fixed_iters=krylov_fixed)
             return armijo(phi, mu, dphi, dmu, norm_R)
 
         phi_n, mu_n = jax.lax.cond(converged, lambda a: a, take_step, (phi, mu))
@@ -181,33 +176,18 @@ class ForwardSolver2D:
                            else max(cfg.krylov_tol, 1e-6))
         self._rtol = 0.0 if self.dtype == jnp.float64 else cfg.newton_rtol
         self._stagnation = self.dtype != jnp.float64
-        # f32/TPU path: fixed-trip Krylov (smaller program, no barriers)
+        # f32 path: fixed-trip Krylov (smaller program, no barriers)
         self._krylov_fixed = (None if self.dtype == jnp.float64
                               else cfg.krylov_fixed_iters)
-        # Forward matmul precision: explicit knob wins; f32 defaults to
-        # 'high' (bf16x3, ~f32-accurate on the diagonally-dominant forward
-        # system; validated by batch descent + reference-optimum landing)
-        # because 6-pass 'highest' makes 128x128+ compiles pathological.
-        # The adjoint always keeps the package-global full precision.
-        self._fwd_precision = (cfg.forward_matmul_precision
-                               or ("high" if self.dtype == jnp.float32
-                                   else None))
+        # Forward matmul precision: None inherits the package-global
+        # "highest". On the H100 "high" lowers to a TF32 cuBLAS gemm
+        # (3e-4 relative error per product); its noise floor sits above the
+        # relative Newton exit, and the 64x64 float32 sweep then took 6x the
+        # Newton solves of "highest" for no accuracy gain.
+        self._fwd_precision = cfg.forward_matmul_precision
         self.dts = build_dt_schedule(cfg.T, cfg.dt_initial)
         self.t_hist = t_history(self.dts, cfg.T)
         self.M = len(self.dts)
-        # Pallas fused-BiCGStab Schur solve: default ON for the f32/TPU
-        # fixed-trip path (measured on-chip; ops/pallas_kernels.py), OFF for
-        # f64/CPU where the adaptive Krylov loop is used instead, and OFF
-        # when the VMEM-resident solve won't fit (256x256 OOM'd scoped vmem
-        # at 19.22 MB vs the 16 MB limit — falls back to composed XLA).
-        from vch_tpu.ops.pallas_kernels import kernel_vmem_fits
-        self._use_pallas = (cfg.use_pallas if cfg.use_pallas is not None
-                            else (self._krylov_fixed is not None
-                                  and jax.default_backend() == "tpu"
-                                  and kernel_vmem_fits(cfg.Nx + 1,
-                                                       cfg.Ny + 1)))
-        self._pallas_interpret = False   # tests: run kernels off-TPU
-        self._pallas_variant = getattr(cfg, "pallas_variant", "spectral")
         self._simulate = jax.jit(self._march_impl)
         self.last_stats = None
 
@@ -227,53 +207,58 @@ class ForwardSolver2D:
         phi_hist, _ = self._march_impl(u, phi0)
         return phi_hist
 
+    def matmul_precision(self):
+        """Context applying the forward solver's matmul precision (a no-op
+        when it inherits the package default)."""
+        if self._fwd_precision is None:
+            return contextlib.nullcontext()
+        return jax.default_matmul_precision(self._fwd_precision)
+
     def _march_impl(self, u, phi0):
-        if self._fwd_precision is not None:
-            with jax.default_matmul_precision(self._fwd_precision):
-                return self._simulate_body(u, phi0)
-        return self._simulate_body(u, phi0)
+        with self.matmul_precision():
+            return self._simulate_body(u, phi0)
+
+    def _step(self, phi, mu, w, u_n, u_np1, dt, m0):
+        """One Crank-Nicolson step: Newton solve, clip, interior-only mass
+        correction (ref :564-577). Shared by the full march and the
+        checkpointed one (models/lowmem.py), so both run the same program.
+        Returns (phi, mu, w, newton_solves, mass_error before correction)."""
+        cfg = self.config
+        wts_h = jnp.asarray(self._wts_h, self.dtype)
+        lo, hi = -1.0 + DELTA_SEP, 1.0 - DELTA_SEP
+        w_new = solve_w(w, dt, cfg.gamma, u_n, u_np1)
+        mu_init = self.initialize_mu(phi, w_new)
+        phi_new, mu_new, k = newton_2d(
+            self.op, phi, mu, w, w_new, dt, cfg.tau, cfg.c1, cfg.c2,
+            cfg.kappa, DELTA_SEP, cfg.newton_tol, cfg.newton_max_iter,
+            self.krylov_tol, cfg.krylov_max_iter, mu_init, rtol=self._rtol,
+            stagnation_exit=self._stagnation,
+            krylov_fixed=self._krylov_fixed, return_iters=True)
+        phi_c = jnp.clip(phi_new, lo, hi)
+        mass_error = jnp.sum(wts_h * phi_c) - m0
+        interior = jnp.abs(phi_c) < (1.0 - DELTA_SEP - 5e-3)
+        Wint = jnp.sum(jnp.where(interior, wts_h, 0.0))
+        corrected = jnp.where(interior, phi_c - mass_error / Wint, phi_c)
+        fallback = jnp.clip(phi_c - mass_error / (cfg.Lx * cfg.Ly), lo, hi)
+        needs_fix = jnp.abs(mass_error) > 1e-16
+        phi_c = jnp.where(needs_fix,
+                          jnp.where(Wint > 0, corrected, fallback), phi_c)
+        return phi_c, mu_new, w_new, k, mass_error
 
     def _simulate_body(self, u, phi0):
-        cfg = self.config
-        dtype = self.dtype
-        op = self.op
-        wts_h = jnp.asarray(self._wts_h, dtype)
-        dts = jnp.asarray(self.dts, dtype)
-        tau, c1, c2 = cfg.tau, cfg.c1, cfg.c2
-        gamma, kappa = cfg.gamma, cfg.kappa
-        lo, hi = -1.0 + DELTA_SEP, 1.0 - DELTA_SEP
-
+        wts_h = jnp.asarray(self._wts_h, self.dtype)
+        dts = jnp.asarray(self.dts, self.dtype)
         w0 = jnp.zeros_like(phi0)
         mu0 = self.initialize_mu(phi0, w0)
         m0 = jnp.sum(wts_h * phi0)
 
         def step(carry, inp):
             phi, mu, w, nsolve, first_bad, idx = carry
-            u_n, u_np1, dt = inp
-            w_new = solve_w(w, dt, gamma, u_n, u_np1)
-            mu_init = self.initialize_mu(phi, w_new)
-            phi_new, mu_new, k = newton_2d(
-                op, phi, mu, w, w_new, dt, tau, c1, c2, kappa, DELTA_SEP,
-                cfg.newton_tol, cfg.newton_max_iter, self.krylov_tol,
-                cfg.krylov_max_iter, mu_init, rtol=self._rtol,
-                stagnation_exit=self._stagnation,
-                krylov_fixed=self._krylov_fixed, return_iters=True,
-                use_pallas=self._use_pallas,
-                pallas_interpret=self._pallas_interpret,
-                pallas_variant=self._pallas_variant)
-            phi_c = jnp.clip(phi_new, lo, hi)
-            # interior-only mass correction (ref :564-577)
-            mass_error = jnp.sum(wts_h * phi_c) - m0
+            phi_c, mu_new, w_new, k, mass_error = self._step(
+                phi, mu, w, *inp, m0)
             # runtime sanitizer (ref Forward_solver.py:166-172 analog)
             bad = ~jnp.isfinite(mass_error)
             first_bad = jnp.where((first_bad < 0) & bad, idx, first_bad)
-            interior = jnp.abs(phi_c) < (1.0 - DELTA_SEP - 5e-3)
-            Wint = jnp.sum(jnp.where(interior, wts_h, 0.0))
-            corrected = jnp.where(interior, phi_c - mass_error / Wint, phi_c)
-            fallback = jnp.clip(phi_c - mass_error / (cfg.Lx * cfg.Ly), lo, hi)
-            needs_fix = jnp.abs(mass_error) > 1e-16
-            phi_c = jnp.where(needs_fix,
-                              jnp.where(Wint > 0, corrected, fallback), phi_c)
             return (phi_c, mu_new, w_new, nsolve + k, first_bad,
                     idx + 1), phi_c
 
@@ -312,60 +297,6 @@ class ForwardSolver2D:
                 f"diverged (see Forward_solver.py:166-172 semantics).")
         return phi_hist, (self.x, self.y), self.t_hist
 
-    def fused_march_available(self) -> bool:
-        """Whether the whole-march fused Pallas kernel can carry the batched
-        forward solve (f32 fixed-trip path with the solve VMEM-resident)."""
-        from vch_tpu.ops.pallas_kernels import kernel_vmem_fits
-        return (self._krylov_fixed is not None
-                and kernel_vmem_fits(self.config.Nx + 1, self.config.Ny + 1))
-
-    def march_fused_batch(self, u, phi0, interpret: bool = False):
-        """Batched forward march in ONE Pallas kernel (ops/pallas_march.py).
-
-        Args: u (B, M+1, Nx+1, Ny+1), phi0 (B, Nx+1, Ny+1).
-        Returns (phi_hist (B, M+1, ...), newton_solves (B,), first_bad (B,)).
-        Semantics match vmap(_march_impl) member-for-member, but each member
-        runs its own Newton/Armijo trip counts (no vmap lockstep) and the
-        whole time loop stays VMEM-resident.
-        """
-        from vch_tpu.ops.pallas_march import (march_fused_2d,
-                                              march_fused_2d_blocked)
-        assert self._krylov_fixed is not None, (
-            "fused march is the fixed-trip (f32/TPU) path")
-        cfg = self.config
-        op = self.op
-        trips = cfg.fused_krylov_fixed_iters or self._krylov_fixed
-        bb = cfg.resolved_fused_block()
-        if bb and phi0.shape[0] % bb == 0:
-            # member-block-tiled kernel (config.fused_march_block): bigger
-            # MXU tiles, masked per-member lockstep inside each Bb-block
-            return march_fused_2d_blocked(
-                jnp.asarray(self.dts, self.dtype), phi0, u, op.Lx, op.Ly.T,
-                op.Vx_inv, op.Vy_inv.T, op.Vx, op.Vy.T, op.lam,
-                jnp.asarray(self._wts_h, self.dtype), cfg.tau, cfg.c1,
-                cfg.c2, cfg.kappa, cfg.gamma, DELTA_SEP, cfg.Lx * cfg.Ly,
-                cfg.newton_tol, self._rtol, cfg.newton_max_iter,
-                trips, stagnation_exit=self._stagnation,
-                interpret=interpret,
-                solve_prec=getattr(cfg, "fused_solve_precision", None)
-                or "highest",
-                fwd_mm="highest", block_b=bb)
-        return march_fused_2d(
-            jnp.asarray(self.dts, self.dtype), phi0, u, op.Lx, op.Ly.T,
-            op.Vx_inv, op.Vy_inv.T, op.Vx, op.Vy.T, op.lam,
-            jnp.asarray(self._wts_h, self.dtype), cfg.tau, cfg.c1, cfg.c2,
-            cfg.kappa, cfg.gamma, DELTA_SEP, cfg.Lx * cfg.Ly,
-            cfg.newton_tol, self._rtol, cfg.newton_max_iter,
-            trips, stagnation_exit=self._stagnation,
-            interpret=interpret,
-            solve_prec=getattr(cfg, "fused_solve_precision", None)
-            or "highest",
-            # residuals/Armijo stay HIGHEST (bf16x3 residual noise stalls
-            # the accept test near convergence: 94 -> 38 it/s at 20 iters);
-            # fwd_mm='bf16x3' remains available via fused_solve_precision
-            # wiring for experiments only
-            fwd_mm="highest")
-
     def energy_history(self, phi_hist, w_hist=None, eps=None):
         """Free energy per stored frame (ref COMPUTE_ENERGY flag semantics,
         Forward2_solver.py:48-50, :552-561 — but vectorized over the whole
@@ -388,8 +319,6 @@ class ForwardSolver2D:
             cfg.c2, cfg.kappa, DELTA_SEP, cfg.newton_tol, cfg.newton_max_iter,
             self.krylov_tol, cfg.krylov_max_iter, mu_init, record_history=True,
             rtol=self._rtol, stagnation_exit=self._stagnation,
-            krylov_fixed=self._krylov_fixed, use_pallas=self._use_pallas,
-            pallas_interpret=self._pallas_interpret,
-            pallas_variant=self._pallas_variant)
+            krylov_fixed=self._krylov_fixed)
         hist = np.asarray(hist)
         return phi, mu, list(hist[~np.isnan(hist)])

@@ -1,6 +1,6 @@
 """Spatial operators, spectral transforms, quadrature, and potential terms.
 
-These are the TPU-native building blocks replacing the reference's
+These are the building blocks replacing the reference's
 NumPy/SciPy operator assembly (ref: Forward_solver.py:57-91,
 Forward2_solver.py:86-181). Everything here is either a host-side numpy
 precomputation (grid constants, eigenbases) or a pure-jnp function safe

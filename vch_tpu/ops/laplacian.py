@@ -7,7 +7,7 @@ ghost-point Neumann rows — interior 3-point stencil a=1/h^2 and boundary rows
 assembles kron(I, Lx) + kron(Ly, I) over the flattened field
 (Forward2_solver.py:125-137).
 
-TPU-native design: this operator has an EXACT eigendecomposition in the
+Design: this operator has an EXACT eigendecomposition in the
 cosine basis on a uniform grid,
 
     v_k[j] = cos(pi*k*j/N),   L v_k = lambda_k v_k,
@@ -15,13 +15,14 @@ cosine basis on a uniform grid,
 
 which holds including the mirrored boundary rows. We precompute V (modes as
 columns) and V^{-1} (DCT-I-like analysis with trapezoidal weights) host-side
-in float64 and apply them as dense matmuls — pure MXU work. This is what makes
-the Newton/adjoint linear solves fast on TPU: the constant-coefficient part of
-every implicit operator is diagonal in this basis (see ops/linsolve.py).
+in float64 and apply them as dense matmuls. This is what makes the
+Newton/adjoint linear solves fast on an accelerator: the constant-coefficient
+part of every implicit operator is diagonal in this basis (see
+ops/linsolve.py).
 
-Matrix-free stencil applies are also provided (used by Pallas kernels and as a
-matmul-free fallback); the 2D Laplacian is applied as two 1D matmuls
-Lx @ A + A @ Ly^T rather than a kron matvec.
+Matrix-free stencil applies are also provided (a matmul-free alternative);
+the 2D Laplacian is applied as two 1D matmuls Lx @ A + A @ Ly^T rather than
+a kron matvec.
 """
 from __future__ import annotations
 
@@ -79,7 +80,7 @@ def apply_laplacian_2d(Lx: jnp.ndarray, Ly: jnp.ndarray, v: jnp.ndarray) -> jnp.
     """2D Neumann Laplacian on a field v[..., i, j]: Lx along axis -2, Ly along -1.
 
     Equivalent to the reference's kron(I,L)+kron(L,I) matvec on square grids
-    (Forward2_solver.py:125-152), expressed as two MXU matmuls.
+    (Forward2_solver.py:125-152), expressed as two matmuls.
     """
     return jnp.einsum("ab,...bj->...aj", Lx, v) + v @ Ly.T
 

@@ -4,8 +4,8 @@ The reference solves the coupled (phi, mu) Newton system monolithically —
 dense LU on 2(N+1) unknowns in 1D (Forward_solver.py:185) and sparse LU
 (spsolve) on 2*Nloc unknowns in 2D (Forward2_solver.py:370) — and the adjoint
 march with dense/sparse LU per step (backward_solver.py:113-118,
-backward2_solver.py:226-231). Sparse LU does not exist on TPU; instead we
-exploit structure:
+backward2_solver.py:226-231). Sparse LU maps poorly onto an accelerator;
+instead we exploit structure:
 
 Newton system (J from Forward_solver.py:111-137):
     [Kpp  -I/2] [dphi]   [-Rphi]        Kpp = -(kappa/2) L + (tau/dt + D) I,
@@ -22,11 +22,11 @@ On the uniform Neumann grid L diagonalizes EXACTLY in the cosine basis
 (ops/laplacian.py), so:
 
 - 1D: form S densely ((N+1)^2, tiny) and use batched LU (jnp.linalg.solve) —
-  maps to MXU-backed batched linear algebra, exact parity with the reference.
+  batched dense linear algebra, exact parity with the reference.
 - 2D: matrix-free preconditioned BiCGStab. The operator apply is two Laplacian
   applies (4 matmuls); the preconditioner replaces D by its mean dbar, which
   makes it diagonal in the cosine basis: 4 matmuls + a pointwise divide.
-  All MXU work, batchable over scenarios via vmap.
+  All matmul work, batchable over scenarios via vmap.
 """
 from __future__ import annotations
 
@@ -103,7 +103,7 @@ def bicgstab(apply_A: Callable, b: jnp.ndarray, apply_M: Callable,
     mesh runs the SAME trip count. Collectives inside a data-dependent
     while_loop otherwise deadlock when trip counts diverge across device
     groups that share a global communicator (the XLA CPU collective
-    rendezvous spans the whole mesh, and on TPU a cross-group collective
+    rendezvous spans the whole mesh, and on the GPU a cross-group NCCL
     sequence mismatch is just as fatal). When set, converged systems
     FREEZE (body updates masked by the local predicate), so the extra
     lockstep iterations are exact no-ops and per-member results are
@@ -163,7 +163,7 @@ def bicgstab_fixed(apply_A: Callable, b: jnp.ndarray, apply_M: Callable,
                    dot_fn: Callable | None = None):
     """Fixed-trip-count BiCGStab (fori_loop, no convergence predicate).
 
-    The TPU execution path: a constant number of Krylov iterations compiles
+    The float32 execution path: a constant number of Krylov iterations compiles
     to a much smaller program than the adaptive while_loop (no reduce+branch
     per iteration) and runs without per-iteration convergence barriers. The
     outer (inexact) Newton iteration absorbs residual inexactness — its
@@ -256,10 +256,9 @@ def bicgstab_split_fixed(apply_A: Callable, b: jnp.ndarray,
                          dot_fn: Callable | None = None):
     """Fixed-trip-count variant of bicgstab_split (see both docstrings).
 
-    The composed-XLA analog of pallas_kernels.bicgstab_adjoint_pallas: same
-    split conditioning, same bicgstab_fixed freeze/best-iterate policy —
-    used on the f32/TPU path when the fused kernel does not fit VMEM
-    (256x256) and in the low-memory adjoint recomputation."""
+    Same split conditioning, with the bicgstab_fixed freeze/best-iterate
+    policy — the float32 adjoint step solve (full-memory and low-memory
+    sweeps)."""
     bt = apply_Phalf(b)
     y0 = None if x0 is None else apply_Phalf_inv(x0)
 
@@ -363,17 +362,12 @@ def newton_schur_solve_2d(op: SpectralOp2D, phi: jnp.ndarray,
                           dt, tau: float, c1: float, kappa: float,
                           delta_sep: float, tol: float = 1e-9,
                           max_iter: int = 200,
-                          fixed_iters: int | None = None,
-                          use_pallas: bool = False,
-                          pallas_interpret: bool = False,
-                          pallas_variant: str = "spectral"):
+                          fixed_iters: int | None = None):
     """2D version of the exact Schur solve; fields are (Nx+1, Ny+1).
 
     The Jacobian diagonal uses the reference's safety clip
     phi^2 <= 1 - delta_sep^2 (Forward2_solver.py:243-244).
-    fixed_iters selects the fixed-trip-count Krylov variant (TPU path);
-    use_pallas additionally fuses that whole Krylov solve into ONE Pallas
-    kernel resident in VMEM (ops/pallas_kernels.bicgstab_schur_pallas).
+    fixed_iters selects the fixed-trip-count Krylov variant (float32 path).
     """
     phi_sq = jnp.clip(phi * phi, 0.0, 1.0 - delta_sep * delta_sep)
     d = 2.0 * c1 / (1.0 - phi_sq)
@@ -392,31 +386,7 @@ def newton_schur_solve_2d(op: SpectralOp2D, phi: jnp.ndarray,
         return from_spectral(op, to_spectral(op, v) / denom)
 
     rhs = lap(Rphi) - Rmu
-    if use_pallas and fixed_iters is not None:
-        from vch_tpu.ops import pallas_kernels as pk
-        if pallas_variant == "spectral":
-            # spectral-basis fused solve: free diagonal preconditioner, 8
-            # matmuls/trip instead of 16 — measured 1.19x on-chip at 64x64
-            # B=32 n_iter=4. Krylov path differs from bicgstab_fixed (the
-            # residual lives in the spectral metric); the outer Newton
-            # tolerance gates solution quality either way.
-            dphi = pk.bicgstab_schur_spectral_pallas(
-                op.Vx_inv, op.Vy_inv.T, op.Vx, op.Vy.T, op.lam, denom, d,
-                rhs, 1.0 / dt, tau / dt, 0.5 * kappa, n_iter=fixed_iters,
-                interpret=pallas_interpret)
-        else:
-            # raw-basis fused solve, exact bicgstab_fixed parity. (A
-            # member-TILED variant exists — bicgstab_schur_pallas_batched,
-            # parity-gated in tests — but measured SLOWER than vmap of this
-            # serial kernel on-chip (0.63-0.76x at 64x64 B=32): the
-            # member-local transposes in its left-multiplies and the
-            # skinny block-ones reduction matmuls cost more than the
-            # bigger MXU tiles win back.)
-            dphi = pk.bicgstab_schur_pallas(
-                op.Lx, op.Ly.T, op.Vx_inv, op.Vy_inv.T, op.Vx, op.Vy.T,
-                denom, d, rhs, 1.0 / dt, tau / dt, 0.5 * kappa,
-                n_iter=fixed_iters, interpret=pallas_interpret)
-    elif fixed_iters is not None:
+    if fixed_iters is not None:
         dphi = bicgstab_fixed(apply_S, rhs, apply_M, n_iter=fixed_iters)
     else:
         dphi = bicgstab(apply_S, rhs, apply_M, tol=tol, max_iter=max_iter)

@@ -2,10 +2,11 @@
 
 Design (SURVEY.md section 7): a 1D mesh over the scenario batch; arrays with
 a leading batch axis are placed with NamedSharding(P("scenarios")), so every
-elementwise/matmul op in the solvers runs embarrassingly parallel per chip
-and scalar reductions (cost sums, convergence tests) become psums over ICI.
-For multi-host, `jax.distributed.initialize()` + the same mesh spans hosts
-(DCN between hosts, ICI within).
+elementwise/matmul op in the solvers runs embarrassingly parallel per
+device and scalar reductions (cost sums, convergence tests) become
+all-reduces, which XLA hands to NCCL between the cards (NVLink within a
+host). For several processes, `initialize_distributed` + the same mesh spans
+them.
 """
 from __future__ import annotations
 
@@ -37,24 +38,25 @@ def replicated_sharding(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, P())
 
 
-def initialize_distributed(coordinator_address=None, num_processes=None,
-                           process_id=None):
-    """Multi-host bring-up for pod slices (BASELINE.md weak-scaling runs).
+def initialize_distributed(coordinator_address: Optional[str] = None,
+                           num_processes: Optional[int] = None,
+                           process_id: Optional[int] = None) -> bool:
+    """Join a multi-process run; returns whether it did.
 
-    Wraps `jax.distributed.initialize`; with no arguments, TPU pod
-    environments auto-discover peers. After this, `make_mesh()` over
-    `jax.devices()` spans all hosts: the scenario axis crosses hosts via DCN
-    while per-host shards communicate over ICI. Safe to call on CPU-only
-    test environments (no-ops on failure).
+    One process drives all of a host's cards, so a single process
+    (num_processes None or 1) needs no bring-up and this returns False.
+    Otherwise it wraps `jax.distributed.initialize` with an explicit
+    coordinator ("host:port"), process count and rank: nothing on a plain
+    GPU host tells JAX of a cluster. Afterwards `make_mesh()` over
+    `jax.devices()` spans every process, and the scenario axis's
+    collectives run over NCCL across cards and hosts. Errors propagate.
     """
-    try:
-        jax.distributed.initialize(coordinator_address=coordinator_address,
-                                   num_processes=num_processes,
-                                   process_id=process_id)
-        return True
-    except Exception as e:  # single-process / already initialized
-        print(f"[parallel] distributed init skipped: {e}")
+    if not num_processes or num_processes <= 1:
         return False
+    jax.distributed.initialize(coordinator_address=coordinator_address,
+                               num_processes=num_processes,
+                               process_id=process_id)
+    return True
 
 
 def shard_batch(tree, mesh: Mesh):

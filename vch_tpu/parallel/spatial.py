@@ -1,11 +1,11 @@
 """Spatial (grid) sharding: the 2D solver under shard_map with halo exchange.
 
 For very large grids (256x256+, BASELINE.md config 5) the scenario batch
-alone may not saturate a slice; the grid's x-axis is sharded across chips.
+alone may not fill the cards; the grid's x-axis is sharded across devices.
 Design (SURVEY.md section 7 stretch goal, completed round 2):
 
   - the 5-point stencil Laplacian exchanges one halo row per neighbor per
-    apply with `lax.ppermute` (ICI neighbor traffic, no all-to-all); global
+    apply with `lax.ppermute` (neighbor traffic, no all-to-all); global
     Neumann boundaries keep their mirrored-ghost form automatically — the
     first/last shard substitutes its own second/second-to-last row for the
     missing halo, which is exactly the reflection stencil (ops/laplacian.py);
@@ -104,7 +104,7 @@ class GridShardedForward2D:
         while field rows stay sharded over `axis` — each device runs the
         per-shard marcher vmapped over its local members, with the gx
         collectives (halo ppermute, psum_scatter transforms, psum'd dots)
-        batched across them (VERDICT round-3 missing #1)."""
+        batched across them."""
         self.config = config or ForwardSolverConfig2D()
         cfg = self.config
         if mesh is None:
@@ -722,8 +722,8 @@ class GridShardedBatchedProblem2D(_BatchedPGDBase):
     """Batched PGD over a combined (scenarios, gx) 2D mesh.
 
     The last composition the BASELINE config-5 spec implies (4096 scenarios
-    at grids where ONE member's working set outgrows a chip,
-    ref Forward2_solver.py:370 at pod scale; VERDICT round-3 missing #1):
+    at grids where ONE member's working set outgrows a device,
+    ref Forward2_solver.py:370 at scale):
     the scenario batch is sharded over the mesh's "scenarios" axis while
     every member's field ROWS are sharded over its "gx" axis. Forward
     marches and adjoint sweeps run as one shard_map program on the full
@@ -769,8 +769,8 @@ class GridShardedBatchedProblem2D(_BatchedPGDBase):
                               self.dtype)
         self._t = jnp.asarray(self.fwd.t_hist, self.dtype)
 
-        # whole-batch callables for the generic engine: the fused-forward /
-        # fused-adjoint slots carry the shard_map programs (the engine's
+        # whole-batch callables for the generic engine: the batch-forward /
+        # batch-adjoint slots carry the shard_map programs (the engine's
         # per-member vmap path cannot wrap a shard_map)
         def _fwd(u, phi0, phi_Q=None, phi_T=None):
             phi, ns, _bad = self.fwd.march(u, phi0)   # ns is (B,) per-member
@@ -781,8 +781,8 @@ class GridShardedBatchedProblem2D(_BatchedPGDBase):
                                         phi_T)
             return r
 
-        self._fused_forward = _fwd
-        self._fused_adjoint = _adjoint
+        self._batch_forward = _fwd
+        self._batch_adjoint = _adjoint
         # the shard_map programs hard-require B divisible by the scenario
         # axis; run() raises a clear error instead of an opaque shard_map
         # partition failure (there is no unsharded fallback here)

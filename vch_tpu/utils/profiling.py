@@ -1,11 +1,11 @@
 """Profiler integration + solver throughput counters.
 
 The reference's only tracing is printed wall-clock accumulators
-(GD_1D.py:563-576). TPU equivalents here:
+(GD_1D.py:563-576). Equivalents here:
   - `trace(logdir)`: context manager around `jax.profiler` producing
     TensorBoard-loadable device traces of the jitted solvers.
   - `SolveCounters`: derives the BASELINE.md north-star counters
-    (Newton solves/s/chip, PGD scenario-iterations/s) from phase timings
+    (Newton solves/s per device, PGD scenario-iterations/s) from phase timings
     and the solver's static step counts.
 """
 from __future__ import annotations
@@ -34,7 +34,7 @@ class SolveCounters:
     while_loop trip counts of every forward solve it executes
     (models/forward*.MarchStats; parallel/batch.run returns the total), so
     newton_solves_per_s is real work / real wall-clock — no estimated
-    iteration factors (VERDICT round-1 weak #2).
+    iteration factors.
     """
 
     time_steps: int
